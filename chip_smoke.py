@@ -21,8 +21,26 @@ script exits non-zero):
    call under the profiler (device busy share, time by kernel);
 5. whole forward: kernel path against plain path on one batch, same
    weights and noise, f32 (and the bf16 top-1 agreement);
-6. launch counts of the serving run, the per-kernel JSON line, and the
-   final ``{"ok": true, ...}`` line.
+6. launch counts of the serving run;
+7. train kernels: each of the four training layers (GAT conv, MetaLayer,
+   encoder and decoder layer), forward and backward, against autograd of
+   its plain version at the training path's shapes (B = 256 graphs at
+   (N, E) = (16, 64) and (128, 384); B = 256 questions at L = 16 and 32),
+   in f32 (TF32 off) and bf16, with fwd+bwd timings, the bound, SDPA
+   forward+backward as the attention core's yardstick, and device time
+   by kernel at the largest shapes;
+8. training: ``train_step`` of the full-width config of record (bf16,
+   dropouts on) at batch 256 on the GQA-like synthetic mix through the
+   bucketed collators, one warm-up step and 5 counted steps over two
+   node buckets, each step's loss, grad norm and ms, launches per step
+   and direction, and one profiled step (device time by kernel, busy
+   share);
+9. train step, kernels against plain: one f32 step on one batch through
+   both paths from the same weights, masks and noise (loss, grad norm,
+   node mask, every gradient), and the same in bf16 (loss, grad norm);
+then the per-kernel JSON line (all eight kernels) and the final
+``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
+the serving model is built.
 
 It needs one CUDA device and the CUDA toolkit; without them it exits
 non-zero and prints no result.
@@ -87,6 +105,16 @@ def nbytes(*objs) -> int:
         elif isinstance(o, (tuple, list)):
             total += nbytes(*o)
     return total
+
+
+def bound(flops, byts, dtype):
+    """The least time for ``flops`` operations at ``dtype``'s peak and
+    ``byts`` bytes at the memory rate, in ms, and which of the two binds."""
+    import torch
+
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, byts / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def compare(name, got, want, tol):
@@ -170,12 +198,6 @@ def phase_kernels(model, device):
 
     rng = np.random.default_rng(0)
     entries = {}
-
-    def bound(flops, byts, dtype):
-        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-        t_ops, t_bytes = flops / peak * 1e3, byts / PEAK_BYTES * 1e3
-        return (max(t_ops, t_bytes),
-                "operations" if t_ops >= t_bytes else "bytes")
 
     def record(key, info, dtype, fn, plain, flops, inputs, outputs):
         got, want = fn(), plain()
@@ -317,7 +339,7 @@ def phase_serving():
     results = pred.predict(questions, graphs, batch_size=32, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = ops.launch_counts(ops.EVAL_WRAPPERS)
     if len(results) != 64 or any(r is None for r in results):
         raise AssertionError("serving returned the wrong number of answers")
     for r, g in zip(results, graphs):
@@ -362,12 +384,18 @@ def device_profile(fn):
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA") \
                 and ev.device_time_total > 0:
-            fam = next((k for k in ("gemm", "gat_edge", "graph_norm",
-                                    "attention", "residual_ln",
-                                    "scatter_mean", "instr_gelu")
-                        if k in ev.name), "other (PyTorch)")
+            fam = next((k for k in KERNEL_FAMILIES if k in ev.name),
+                       "other (PyTorch)")
             families[fam] = families.get(fam, 0.0) + ev.device_time_total / 1e3
     return wall_ms, families
+
+
+# the port's kernels by name, the most specific first
+KERNEL_FAMILIES = ("gemm_any", "gemm", "reduce_rows", "colsum",
+                   "gat_edge_bwd", "gat_edge", "graph_norm_bwd", "graph_norm",
+                   "attention_bwd", "attention", "ln_bwd", "residual_ln",
+                   "relu_bwd", "gelu_bwd", "scatter_mean_bwd", "scatter_mean",
+                   "scatter_rows", "instr_gelu")
 
 
 def by_kernel(families) -> str:
@@ -457,7 +485,383 @@ KERNELS = {
                             "isubgvqa_tpu/ops/pallas/text_kernel.py:387"),
     "fused_metalayer": ("isubgvqa_tpu_torch/csrc/metalayer_kernel.cu",
                         "isubgvqa_tpu/ops/pallas/metalayer_kernel.py:143"),
+    "fused_gatconv": ("isubgvqa_tpu_torch/csrc/gat_train.cu",
+                      "isubgvqa_tpu/ops/pallas/gat_train.py:484"),
+    "fused_metalayer_train": ("isubgvqa_tpu_torch/csrc/metalayer_train.cu",
+                              "isubgvqa_tpu/ops/pallas/metalayer_train.py:265"),
+    "fused_encoder_layer_train": ("isubgvqa_tpu_torch/csrc/text_train.cu",
+                                  "isubgvqa_tpu/ops/pallas/text_train.py:622"),
+    "fused_decoder_layer_train": ("isubgvqa_tpu_torch/csrc/text_train.cu",
+                                  "isubgvqa_tpu/ops/pallas/text_train.py:742"),
 }
+
+TRAIN_B = 256
+TRAIN_GRAPH_SHAPES = ((16, 64), (128, 384))
+# Each gradient's RMS error over its RMS (the relative Frobenius error),
+# the RMS floored at 1 % of the layer's largest (a gradient that is zero
+# in exact arithmetic, such as that of the bias just before GraphNorm,
+# holds only rounding noise of terms at that scale).  RMS, not max abs:
+# kernel and plain version sum in another order, which can flip the sign
+# of an FFN pre-activation within rounding of 0 (f32 or, more often, a
+# bf16 rounding of the forward), and one flipped ReLU moves a whole row of
+# linear1's gradient by about 1 % of its max abs, but its RMS by about
+# 1 / sqrt(rows * 2048): 3.5e-4 at B*L = 4096.  f32 (TF32 off): 1e-3,
+# room for a few flips and summation order; bf16: 3e-2, the forward's
+# roundings at the same points as the plain version, one ulp 2^-8 apart
+TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
+TRAIN_STEPS = 5
+PER_STEP = {"fused_gatconv": 4, "fused_metalayer_train": 1,
+            "fused_encoder_layer_train": 4, "fused_decoder_layer_train": 3}
+
+
+def fwd_bwd(fn, inputs, params, cots):
+    """``fn(*inputs, params)`` and the gradients of ``sum(out * cot)``
+    with respect to the inputs that require them and every parameter."""
+    import torch
+
+    leaves = [t for t in inputs if t.requires_grad] + list(params.values())
+
+    def run():
+        outs = fn(*inputs, params)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        grads = torch.autograd.grad(
+            outs, leaves, [c.to(o.dtype) for o, c in zip(outs, cots)])
+        return outs, grads
+    return run
+
+
+def compare_grads(name, got, want, dtype):
+    """Worst gradient error by the metric of :data:`TRAIN_GRAD_TOL`."""
+    import torch
+
+    tol = TRAIN_GRAD_TOL[str(dtype)[6:]]
+    rms = lambda t: t.float().square().mean().sqrt().item()
+    floor = 1e-2 * max(rms(w) for w in want)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = rms(g.float() - w.float()) / max(rms(w), floor, 1e-12)
+        if not (err <= tol and torch.isfinite(g.float()).all()):
+            raise AssertionError(f"{name}: gradient {i}: error {err:.3g} > "
+                                 f"{tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_train_kernels(model, device):
+    """Each training layer's forward and backward kernels against autograd
+    of its plain version; returns the JSON entries."""
+    import torch
+    import torch.nn.functional as F
+    from isubgvqa_tpu_torch.models.layers import keep_mask
+    from isubgvqa_tpu_torch.ops import gat_train as G
+    from isubgvqa_tpu_torch.ops import metalayer_train as M
+    from isubgvqa_tpu_torch.ops import text_train as T
+
+    rng = np.random.default_rng(1)
+    entries = {}
+    c, heads, d, b = 300, 4, 512, TRAIN_B
+
+    def masters(params):
+        return {k: v.detach().float().clone().requires_grad_(True)
+                for k, v in params.items()}
+
+    def record(key, info, dtype, fn, plain, inputs, params, cots, flops,
+               largest):
+        run, run_plain = (fwd_bwd(f, inputs, params, cots)
+                          for f in (fn, plain))
+        (outs, grads), (outs_p, grads_p) = run(), run_plain()
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        err, _ = compare(f"{key} {info}", outs, outs_p, tol)
+        gerr = compare_grads(f"{key} {info}", grads, grads_p, dtype)
+        ms, plain_ms = time_ms(run, iters=5), time_ms(run_plain, iters=5)
+        b_ms, b_by = bound(flops, nbytes(inputs, params, cots, outs, grads),
+                           dtype)
+        log(f"[7 train kernels] {key} {info} {str(dtype)[6:]}: out max abs "
+            f"{err:.3g}, gradients RMS error of RMS <= {gerr:.3g}; fwd+bwd "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+        if largest and dtype == torch.bfloat16:
+            _, fam = device_profile(run)
+            log(f"[7 train kernels] {key} {info} bfloat16 device time by "
+                f"kernel: {by_kernel(fam) or 'not measured (no CUDA events)'}")
+        return dict(max_abs_err=err, grad_err=gerr, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=info)
+
+    def sdpa_fwd_bwd(lq, lk, dtype, bias):
+        """F.scaled_dot_product_attention forward + backward on q, k, v of
+        the layer's shapes: the attention core's library yardstick."""
+        q = torch.randn(b, 8, lq, 64, device=device, dtype=dtype,
+                        requires_grad=True)
+        k, v = (torch.randn(b, 8, lk, 64, device=device, dtype=dtype,
+                            requires_grad=True) for _ in range(2))
+        cot = torch.randn(b, 8, lq, 64, device=device, dtype=dtype)
+        mask = None if bias is None else bias[:, None, None, :].to(dtype)
+        return time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+            (q, k, v), cot), iters=5)
+
+    gp = model.gat_seq.layer_params(3)
+    conv_p = {k: gp[k] for k in G.CONV_KEYS}
+    meta_p = model.scene_graph_encoder.kernel_params()
+    enc_p = model.question_encoder.transformer_encoder.layers[0].kernel_params()
+    dec_p = model.program_decoder.coarse_decoder.layers[0].kernel_params()
+    draw = lambda *shape: keep_mask(shape, 0.1, None, device)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, e in TRAIN_GRAPH_SHAPES:
+            nm, em, src, dst = random_graphs(rng, b, n, e, device)
+            nv, ev = int(nm.sum()), int(em.sum())
+            info = f"B={b} N={n} E={e}"
+            largest = (n, e) == TRAIN_GRAPH_SHAPES[-1]
+            xf = torch.randn(b, n, c, device=device).to(dtype)
+            ea = torch.randn(b, e, c, device=device).to(dtype)
+            gate = (torch.rand(b, n, 1, device=device) > 0.6).to(dtype)
+            inputs = [t.clone().requires_grad_(True) for t in (xf, gate, ea)]
+            wrap = lambda f: (lambda x, g, a, p: f(x, g, src, dst, em, a, p))
+            r = record("fused_gatconv", info, dtype, wrap(G.fused_gatconv),
+                       wrap(G.fused_gatconv_plain), inputs, masters(conv_p),
+                       (torch.randn(b, n, heads * c, device=device),
+                        torch.randn(b, e, heads, device=device)),
+                       G.gatconv_train_flops(nv, ev, c, heads), largest)
+            entries[("fused_gatconv", dtype)] = r
+            inputs = [t.clone().requires_grad_(True) for t in (xf, ea)]
+            wrap = lambda f: (lambda x, a, p: f(x, a, src, dst, em, nm, p))
+            r = record("fused_metalayer_train", info, dtype,
+                       wrap(M.fused_metalayer_train),
+                       wrap(M.fused_metalayer_train_plain), inputs,
+                       masters(meta_p),
+                       (torch.randn(b, n, c, device=device),
+                        torch.randn(b, e, c, device=device)),
+                       M.metalayer_train_flops(nv, ev, c), largest)
+            entries[("fused_metalayer_train", dtype)] = r
+        for l in TEXT_LENS:
+            info = f"B={b} L={l}"
+            largest = l == TEXT_LENS[-1]
+            x = torch.randn(b, l, d, device=device).to(dtype)
+            lens = torch.randint(6, l + 1, (b,), device=device)
+            km = (torch.arange(l, device=device)[None] < lens[:, None]).float()
+            masks = {"attn": draw(b, 8, l, l), "post_attn": draw(b, l, d),
+                     "ffn": draw(b, l, 2048), "post_ffn": draw(b, l, d)}
+            r = record("fused_encoder_layer_train", info, dtype,
+                       lambda x, p: T.fused_encoder_layer_train(x, km, masks,
+                                                                p, 8),
+                       lambda x, p: T.fused_encoder_layer_train_plain(
+                           x, km, masks, p, 8),
+                       [x.clone().requires_grad_(True)], masters(enc_p),
+                       (torch.randn(b, l, d, device=device),),
+                       T.encoder_layer_train_flops(b, l), largest)
+            r["library_ms"] = sdpa_fwd_bwd(l, l, dtype, km)
+            log(f"[7 train kernels] SDPA fwd+bwd self B={b} L={l} "
+                f"{str(dtype)[6:]}: {r['library_ms']:.4f} ms")
+            entries[("fused_encoder_layer_train", dtype)] = r
+            tgt = torch.randn(b, 4, d, device=device).to(dtype)
+            dmasks = {"self_attn": draw(b, 8, 4, 4), "post_sa": draw(b, 4, d),
+                      "cross_attn": draw(b, 8, 4, l), "post_ca": draw(b, 4, d),
+                      "ffn": draw(b, 4, 2048), "post_ffn": draw(b, 4, d)}
+            info = f"B={b} T=4 L={l}"
+            r = record("fused_decoder_layer_train", info, dtype,
+                       lambda t, m, p: T.fused_decoder_layer_train(
+                           t, m, dmasks, p, 8),
+                       lambda t, m, p: T.fused_decoder_layer_train_plain(
+                           t, m, dmasks, p, 8),
+                       [tgt.clone().requires_grad_(True),
+                        x.clone().requires_grad_(True)], masters(dec_p),
+                       (torch.randn(b, 4, d, device=device),),
+                       T.decoder_layer_train_flops(b, 4, l), largest)
+            r["library_ms"] = sdpa_fwd_bwd(4, l, dtype, None)
+            log(f"[7 train kernels] SDPA fwd+bwd cross B={b} T=4 L={l} "
+                f"{str(dtype)[6:]}: {r['library_ms']:.4f} ms")
+            entries[("fused_decoder_layer_train", dtype)] = r
+    torch.cuda.synchronize()
+    return entries
+
+
+def train_config():
+    from isubgvqa_tpu_torch.config import Config
+
+    return Config(sampler_type="gumbel", sample_k=3,
+                  mgat_masks=(1.0, 1.0, 1.0, 0.15), compute_dtype="bfloat16",
+                  bucket_question_lens=(16,), meta_dir="", batch_size=TRAIN_B)
+
+
+def training_batches(cfg, vocab, answers, n_batches):
+    """``n_batches`` full batches of the GQA-like synthetic mix through the
+    bucketed collators, alternating over the node buckets that fill a
+    batch (at least two)."""
+    from isubgvqa_tpu_torch.data import (SyntheticGQA,
+                                         build_bucket_collators,
+                                         build_tokenizer, route_to_buckets)
+
+    tok = build_tokenizer(None, max_len=cfg.question_len,
+                          vocab_size=cfg.text_vocab_size)
+    ds = SyntheticGQA(vocab, answers, size=2048, seed=1, shape_mix="gqa")
+    colls = build_bucket_collators(cfg, tok, vocab, batch_size=TRAIN_B)
+    per = route_to_buckets(ds, colls)
+    full = {}
+    for key in sorted(per):          # the fullest question bucket per node cap
+        if len(per[key]) >= TRAIN_B and (key[0] not in full or len(per[key])
+                                         > len(per[full[key[0]]])):
+            full[key[0]] = key
+    keys = [full[n] for n in sorted(full)]
+    if len(keys) < 2:
+        raise AssertionError(f"fewer than two node buckets fill a batch: "
+                             f"{ {k: len(v) for k, v in per.items()} }")
+    out = []
+    for i in range(n_batches):
+        key = keys[i % len(keys)]
+        start = (i // len(keys)) * TRAIN_B % (len(per[key]) - TRAIN_B + 1)
+        batch, _ = colls[key].collate([ds[j] for j in
+                                       per[key][start:start + TRAIN_B]])
+        out.append((key, batch))
+    return ds, out
+
+
+def phase_training(device):
+    """The training path at full width: warm-up, then TRAIN_STEPS counted
+    steps and one profiled step.  Returns the launch counts, the state and
+    a batch for phase 9."""
+    import torch
+    from isubgvqa_tpu_torch import ops
+    from isubgvqa_tpu_torch.data import AnswerMap, SceneGraphVocab
+    from isubgvqa_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = train_config()
+    vocab = SceneGraphVocab.build("", seed=cfg.seed)
+    answers = AnswerMap.build("", cfg.num_answers)
+    cfg = dataclasses.replace(cfg, num_answers=len(answers))
+    t0 = time.perf_counter()
+    ds, batches = training_batches(cfg, vocab, answers, TRAIN_STEPS + 2)
+    batches = [(k, b.to(device)) for k, b in batches]
+    log(f"[8 training] data: {len(ds)} samples of the GQA-like mix, "
+        f"{len(batches)} batches of {TRAIN_B} over buckets "
+        f"{sorted({k for k, _ in batches})} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    state = create_train_state(cfg, vocab, steps_per_epoch=len(ds) // TRAIN_B,
+                               device=device)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step = make_train_step(state.model, state.optimizer, cfg)
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0][1])           # warm-up
+    torch.cuda.synchronize()
+    log(f"[8 training] {n_params} parameters (f32 masters, bf16 compute); "
+        f"warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms, loss "
+        f"{float(m['loss_sum'] / m['count']):.4f}")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for key, batch in batches[1:TRAIN_STEPS + 1]:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss_sum"] / m["count"])
+        norm = float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not (np.isfinite(loss) and np.isfinite(norm)):
+            raise AssertionError(f"non-finite training step: loss {loss}, "
+                                 f"grad norm {norm}")
+        log(f"[8 training] step {state.step} bucket {key}: loss {loss:.5f}, "
+            f"grad norm {norm:.5f}, {times[-1]:.1f} ms")
+    counts = ops.launch_counts(ops.TRAIN_WRAPPERS)
+    for name, per in PER_STEP.items():
+        for k in (name, name + "_bwd"):
+            if counts[k] != per * TRAIN_STEPS:
+                raise AssertionError(f"{k}: {counts[k]} launches in "
+                                     f"{TRAIN_STEPS} steps, expected "
+                                     f"{per} per step")
+    log(f"[8 training] launches in {TRAIN_STEPS} steps: {json.dumps(counts)}"
+        f"; step ms median {statistics.median(times):.1f}; peak device "
+        f"memory over the steps "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    wall, fam = device_profile(lambda: step(state, batches[-1][1]))
+    busy = sum(fam.values())
+    if busy:
+        log(f"[8 training] profiled step: wall {wall:.1f} ms, device busy "
+            f"{busy:.2f} ms ({busy / wall:.1%}); by kernel: {by_kernel(fam)}")
+    else:
+        log("[8 training] profile: device time not measured (no CUDA events)")
+    return counts, state, vocab, batches[0][1], statistics.median(times)
+
+
+def phase_train_step_parity(state, vocab, batch):
+    """One step's loss and gradients through the kernels and through the
+    plain versions, same weights, masks and noise."""
+    import torch
+    from isubgvqa_tpu_torch.models import (question_decoder,
+                                           question_encoder,
+                                           scene_graph_encoder)
+    from isubgvqa_tpu_torch.models.build import build_model
+    from isubgvqa_tpu_torch.ops import gat_train, metalayer_train, text_train
+    from isubgvqa_tpu_torch.train.steps import cross_entropy_loss
+
+    sites = [(question_encoder, "fused_encoder_layer_train",
+              text_train.fused_encoder_layer_train_plain),
+             (question_decoder, "fused_decoder_layer_train",
+              text_train.fused_decoder_layer_train_plain),
+             (scene_graph_encoder, "fused_metalayer_train",
+              metalayer_train.fused_metalayer_train_plain),
+             (gat_train, "fused_gatconv", gat_train.fused_gatconv_plain)]
+    sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+
+    def run(dtype, plain):
+        cfg = dataclasses.replace(state.model.cfg, compute_dtype=dtype)
+        model = build_model(cfg, vocab, batch.node_mask.device,
+                            state_dict=sd, train=True)
+        saved = [getattr(m, n) for m, n, _ in sites]
+        try:
+            if plain:
+                for m, n, f in sites:
+                    setattr(m, n, f)
+            gen = torch.Generator(device=batch.node_mask.device)
+            gen.manual_seed(11)
+            out = model(batch, generator=gen, train=True)
+            loss = cross_entropy_loss(out.logits, batch.labels,
+                                      batch.sample_mask)
+            loss.backward()
+        finally:
+            for (m, n, _), f in zip(sites, saved):
+                setattr(m, n, f)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
+        return float(loss.detach()), float(norm), out.node_mask, grads
+
+    lk, nk, mk, gk = run("float32", False)
+    lp, np_, mp, gp = run("float32", True)
+    if not abs(lk - lp) <= 1e-5 * abs(lp):
+        raise AssertionError(f"train step f32: loss {lk} vs plain {lp}")
+    if not abs(nk - np_) <= 1e-3 * np_:
+        raise AssertionError(f"train step f32: grad norm {nk} vs {np_}")
+    if not torch.equal(mk, mp):
+        raise AssertionError("train step f32: node mask differs")
+    # every leaf's RMS error within 3e-3 of its RMS, floored at 1e-3 of the
+    # largest leaf's RMS (a leaf whose exact gradient is zero, such as the
+    # bias just before GraphNorm, holds noise).  RMS, not max abs: the
+    # paths sum in another order, which can flip the sign of an FFN
+    # pre-activation within f32 rounding of 0.  One flipped ReLU of the
+    # B*L x 2048 in an encoder layer moves one row of linear1's gradient
+    # by about 1 % of its max abs, and its RMS by about
+    # 1 / sqrt(B*L * 2048) (3e-4 at B*L = 4096); the bound allows a few
+    rms = lambda t: t.square().mean().sqrt().item()
+    floor = 1e-3 * max(rms(g) for g in gp.values())
+    errs = sorted(((rms(gk[k] - g) / max(rms(g), floor), k, rms(g))
+                   for k, g in gp.items()), reverse=True)
+    worst = errs[0][0]
+    log("[9 train step] f32 worst gradient leaves (RMS error of RMS, leaf, "
+        "RMS): " + "; ".join(f"{e:.3g} {k} {r:.3g}" for e, k, r in errs[:4]))
+    if not worst <= 3e-3:
+        raise AssertionError(f"train step f32: {errs[0][1]} differs by "
+                             f"{worst} of its RMS")
+    l16k, n16k, _, _ = run("bfloat16", False)
+    l16p, n16p, _, _ = run("bfloat16", True)
+    # bf16: the two paths round the forward at the same points, but a
+    # flipped rounding moves the loss (~7.5) by far less than 1 %
+    if not (abs(l16k - l16p) <= 1e-2 * abs(l16p)
+            and abs(n16k - n16p) <= 5e-2 * n16p):
+        raise AssertionError(f"train step bf16: loss {l16k} vs {l16p}, grad "
+                             f"norm {n16k} vs {n16p}")
+    log(f"[9 train step] f32 (TF32 off): loss {lk:.6f} vs plain {lp:.6f}, "
+        f"grad norm {nk:.6f} vs {np_:.6f}, node mask identical, worst "
+        f"gradient leaf {worst:.3g} of its RMS ({len(gk)} leaves); bf16: "
+        f"loss {l16k:.5f} vs {l16p:.5f}, grad norm {n16k:.5f} vs {n16p:.5f}")
 
 
 def main() -> int:
@@ -478,23 +882,40 @@ def main() -> int:
     ref_model = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
                             SceneGraphVocab.build(""), "cuda")
     entries = phase_kernels(ref_model, torch.device("cuda"))
+    entries.update(phase_train_kernels(ref_model, torch.device("cuda")))
     del ref_model
     pred, ds, counts = phase_serving()
     phase_whole_forward(pred, ds)
     log(f"[6 launches] kernels {json.dumps(counts)}")
+    del pred
+    train_counts, state, vocab, batch, step_ms = phase_training(
+        torch.device("cuda"))
+    counts.update(train_counts)
+    phase_train_step_parity(state, vocab, batch)
     line = []
     for k, (src, replaces) in KERNELS.items():
         r = entries[(k, torch.bfloat16)]
-        line.append({"name": k, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": counts[k],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                     "library_call": ("F.scaled_dot_product_attention, "
-                                      "attention core only"
-                                      if "attention_ms" in r else None),
-                     "attention_ms": r.get("attention_ms"),
-                     "shape": r["shape"], "dtype": "bfloat16"})
+        row = {"name": k, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": counts[k],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "shape": r["shape"], "dtype": "bfloat16"}
+        if k in PER_STEP:
+            row.update(bwd_launches=counts[k + "_bwd"],
+                       launches_per_step=PER_STEP[k],
+                       ms_covers="forward + backward",
+                       grad_err=r["grad_err"],
+                       library_call=("F.scaled_dot_product_attention fwd+bwd,"
+                                     " attention core only"
+                                     if r["library_ms"] is not None else None))
+        else:
+            row.update(library_call=("F.scaled_dot_product_attention, "
+                                     "attention core only"
+                                     if "attention_ms" in r else None),
+                       attention_ms=r.get("attention_ms"))
+        line.append(row)
+    log(f"train step median {step_ms:.1f} ms at batch {TRAIN_B}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

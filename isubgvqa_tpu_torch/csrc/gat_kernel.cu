@@ -45,10 +45,15 @@ __global__ void instr_gelu_kernel(const T* __restrict__ h,
   }
 }
 
-template <typename T>
-__global__ void gat_edge_kernel(const T* __restrict__ xl,
-                                const T* __restrict__ xr,
-                                const T* __restrict__ ep,
+// TX: x_l / x_r, TE: projected edges, TC: conv.  The eval layer runs
+// all three at the model dtype and rounds each weighted message to it
+// (kRound); the training conv (gat_train.cu's forward) reads f32 x_l /
+// x_r and writes f32 conv without rounding, as the Pallas training
+// kernel does (gat_train.py:_fwd_kernel).
+template <typename TX, typename TE, typename TC, bool kRound>
+__global__ void gat_edge_kernel(const TX* __restrict__ xl,
+                                const TX* __restrict__ xr,
+                                const TE* __restrict__ ep,
                                 const float* __restrict__ gate,
                                 const int* __restrict__ src,
                                 const int* __restrict__ dst,
@@ -56,7 +61,7 @@ __global__ void gat_edge_kernel(const T* __restrict__ xl,
                                 const float* __restrict__ att,
                                 const float* __restrict__ cbias,
                                 float* __restrict__ alpha,
-                                T* __restrict__ conv, int N, int E, int H,
+                                TC* __restrict__ conv, int N, int E, int H,
                                 int C) {
   extern __shared__ float sm[];
   float* lg = sm;                       // [E, H] logits
@@ -94,9 +99,9 @@ __global__ void gat_edge_kernel(const T* __restrict__ xl,
       continue;
     }
     const float g = eg[e];
-    const T* xs = xl + (nb + sS[e]) * HC;
-    const T* xd = xr + (nb + d) * HC;
-    const T* pe = ep + (eb + e) * HC;
+    const TX* xs = xl + (nb + sS[e]) * HC;
+    const TX* xd = xr + (nb + d) * HC;
+    const TE* pe = ep + (eb + e) * HC;
     for (int hh = 0; hh < H; ++hh) {
       float acc = 0.f;
       for (int c = lane; c < C; c += 32) {
@@ -159,15 +164,21 @@ __global__ void gat_edge_kernel(const T* __restrict__ xl,
     float acc = 0.f;
     for (int q = off[n]; q < off[n + 1]; ++q) {
       const int e = lst[q];
-      acc += round_to<T>(to_f(xl[(nb + sS[e]) * HC + j]) * wg[e * H + hh]);
+      const float w = to_f(xl[(nb + sS[e]) * HC + j]) * wg[e * H + hh];
+      acc += kRound ? round_to<TC>(w) : w;
     }
-    conv[(nb + n) * HC + j] = from_f<T>(acc + cbias[j]);
+    conv[(nb + n) * HC + j] = from_f<TC>(acc + cbias[j]);
   }
 }
 
 }  // namespace isg
 
 using namespace isg;
+
+static size_t gat_edge_smem(int N, int E, int H) {
+  return sizeof(float) * ((size_t)2 * E * H + E + 2 * N * H) +
+         sizeof(int) * ((size_t)3 * E + 2 * N + 1);
+}
 
 ISG_API int isg_instr_gelu(const void* h, const void* instr, void* xf, int dt,
                            int B, int N, int C, void* stream) {
@@ -187,14 +198,32 @@ ISG_API int isg_gat_edge(const void* xl, const void* xr, const void* ep,
                          const int* dst, const float* emask, const float* att,
                          const float* cbias, float* alpha, void* conv, int B,
                          int N, int E, int H, int C, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)2 * E * H + E + 2 * N * H) +
-                      sizeof(int) * ((size_t)3 * E + 2 * N + 1);
+  const size_t smem = gat_edge_smem(N, E, H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ISG_WITH_T(dt, T,
-      allow_smem(gat_edge_kernel<T>, smem);
-      gat_edge_kernel<T><<<B, 512, smem, st>>>(
+      allow_smem(gat_edge_kernel<T, T, T, true>, smem);
+      gat_edge_kernel<T, T, T, true><<<B, 512, smem, st>>>(
           static_cast<const T*>(xl), static_cast<const T*>(xr),
           static_cast<const T*>(ep), gate, src, dst, emask, att, cbias, alpha,
           static_cast<T*>(conv), N, E, H, C));
+  return (int)cudaGetLastError();
+}
+
+// The training conv's forward: f32 x_l / x_r, projected edges at ep_dt,
+// f32 conv [B*N, H*C] and alpha, no rounding of the messages.
+ISG_API int isg_gat_edge_train(const float* xl, const float* xr,
+                               const void* ep, int ep_dt, const float* gate,
+                               const int* src, const int* dst,
+                               const float* emask, const float* att,
+                               const float* cbias, float* alpha, float* conv,
+                               int B, int N, int E, int H, int C,
+                               void* stream) {
+  const size_t smem = gat_edge_smem(N, E, H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ISG_WITH_T(ep_dt, TE,
+      allow_smem(gat_edge_kernel<float, TE, float, false>, smem);
+      gat_edge_kernel<float, TE, float, false><<<B, 512, smem, st>>>(
+          xl, xr, static_cast<const TE*>(ep), gate, src, dst, emask, att,
+          cbias, alpha, conv, N, E, H, C));
   return (int)cudaGetLastError();
 }

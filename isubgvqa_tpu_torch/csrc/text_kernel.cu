@@ -28,6 +28,8 @@ __global__ void attention_kernel(const T* __restrict__ q, int q_rs,
                                  const T* __restrict__ k, int k_rs,
                                  const T* __restrict__ v, int v_rs,
                                  const float* __restrict__ bias,
+                                 const float* __restrict__ keep,
+                                 float* __restrict__ probs,
                                  T* __restrict__ o, int o_rs, int Lq, int Lk,
                                  int dh, float scale) {
   extern __shared__ float sm[];
@@ -72,8 +74,13 @@ __global__ void attention_kernel(const T* __restrict__ q, int q_rs,
       s += e;
     }
     s = warp_sum(s);
-    for (int c = lane; c < Lk; c += 32)
-      ps[r * Lk + c] = round_to<T>(ps[r * Lk + c] / s);
+    const long prow = (((long)b * gridDim.x + h) * Lq + r) * Lk;
+    for (int c = lane; c < Lk; c += 32) {
+      float p = ps[r * Lk + c] / s;
+      if (probs) probs[prow + c] = p;        // saved for the backward
+      if (keep) p *= keep[prow + c];         // dropout on the probabilities
+      ps[r * Lk + c] = round_to<T>(p);
+    }
   }
   __syncthreads();
 
@@ -92,6 +99,8 @@ __global__ void residual_ln_kernel(const TX* __restrict__ x,
                                    const float* __restrict__ b1,
                                    const float* __restrict__ g2,
                                    const float* __restrict__ b2,
+                                   const float* __restrict__ ymask,
+                                   float* __restrict__ z_out,
                                    float* __restrict__ out_f,
                                    void* __restrict__ out_t, int t_dt, int M,
                                    int D, float eps) {
@@ -105,8 +114,12 @@ __global__ void residual_ln_kernel(const TX* __restrict__ x,
   for (int t = 0; t < kMaxPer; ++t) {
     const int c = lane + 32 * t;
     v[t] = 0.f;
-    if (t < per && c < D)
-      v[t] = to_f(x[row * D + c]) + (y ? y[row * D + c] : 0.f);
+    if (t < per && c < D) {
+      float yv = y ? y[row * D + c] : 0.f;
+      if (ymask) yv *= ymask[row * D + c];   // dropout on the branch
+      v[t] = to_f(x[row * D + c]) + yv;
+      if (z_out) z_out[row * D + c] = v[t];  // pre-LN sum, for the backward
+    }
   }
   for (int pass = 0; pass < (g2 ? 2 : 1); ++pass) {
     const float* g = pass ? g2 : g1;
@@ -142,8 +155,11 @@ __global__ void residual_ln_kernel(const TX* __restrict__ x,
 
 using namespace isg;
 
+// keep [B, H, Lq, Lk] (dropout keep values) and probs (the softmax,
+// written for the backward) may be null.
 ISG_API int isg_attention(const void* q, int q_rs, const void* k, int k_rs,
-                          const void* v, int v_rs, const float* bias, void* o,
+                          const void* v, int v_rs, const float* bias,
+                          const float* keep, float* probs, void* o,
                           int o_rs, int B, int Lq, int Lk, int H, int dh,
                           float scale, int dt, void* stream) {
   const size_t smem =
@@ -155,22 +171,24 @@ ISG_API int isg_attention(const void* q, int q_rs, const void* k, int k_rs,
       allow_smem(attention_kernel<T>, smem);
       attention_kernel<T><<<grid, 128, smem, st>>>(
           static_cast<const T*>(q), q_rs, static_cast<const T*>(k), k_rs,
-          static_cast<const T*>(v), v_rs, bias, static_cast<T*>(o), o_rs, Lq,
-          Lk, dh, scale));
+          static_cast<const T*>(v), v_rs, bias, keep, probs,
+          static_cast<T*>(o), o_rs, Lq, Lk, dh, scale));
   return (int)cudaGetLastError();
 }
 
-// out = LN2?(LN1(x + y)); y, g2/b2, out_f and out_t may each be null.
+// out = LN2?(LN1(x + y * ymask)); y, ymask, g2/b2, z_out (the pre-LN
+// sum), out_f and out_t may each be null.
 ISG_API int isg_residual_ln(const void* x, int x_dt, const float* y,
                             const float* g1, const float* b1, const float* g2,
-                            const float* b2, float* out_f, void* out_t,
+                            const float* b2, const float* ymask, float* z_out,
+                            float* out_f, void* out_t,
                             int t_dt, int M, int D, float eps, void* stream) {
   const int rows_per_block = 8;
   const int grid = (M + rows_per_block - 1) / rows_per_block;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ISG_WITH_T(x_dt, TX,
       residual_ln_kernel<TX><<<grid, 32 * rows_per_block, 0, st>>>(
-          static_cast<const TX*>(x), y, g1, b1, g2, b2, out_f, out_t, t_dt,
-          M, D, eps));
+          static_cast<const TX*>(x), y, g1, b1, g2, b2, ymask, z_out, out_f,
+          out_t, t_dt, M, D, eps));
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,7 @@ from typing import Mapping, Optional
 import torch
 
 from ..config import Config
-from .isubgvqa import ISubGVQA
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from .isubgvqa import DTYPES, ISubGVQA
 
 
 def resolve_device(device=None) -> torch.device:
@@ -24,8 +22,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(cfg: Config) -> None:
-    """The port covers the eval forward of the config of record; the
-    other variants are still to port (ROADMAP.md, Queue 1)."""
+    """The port covers the eval forward and the training step of the
+    config of record; the other variants are still to port (ROADMAP.md,
+    Queue 1)."""
     unsupported = [name for name in (
         "text_sampling", "use_all_instrs", "concat_instr", "use_global_mask",
         "interpretable_mode", "node_classification")
@@ -42,12 +41,15 @@ def check_supported(cfg: Config) -> None:
 
 def build_model(cfg: Config, vocab, device=None,
                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                seed: Optional[int] = None) -> ISubGVQA:
-    """An eval-mode :class:`ISubGVQA` on ``device`` at
+                seed: Optional[int] = None,
+                train: bool = False) -> ISubGVQA:
+    """An :class:`ISubGVQA` on ``device`` computing at
     ``cfg.compute_dtype``.  Weights come from ``state_dict`` (upstream
     names, f32) or a seeded random init (``cfg.seed`` by default); the
     scene-graph table starts from ``vocab.vectors`` as in the JAX
-    package."""
+    package.  An eval model (the default) ships its weight matrices at
+    the compute dtype and needs no gradients; with ``train`` the
+    parameters stay f32 masters with ``requires_grad``."""
     check_supported(cfg)
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
@@ -56,8 +58,10 @@ def build_model(cfg: Config, vocab, device=None,
                          sg_vocab_vectors=vocab.vectors)
     if state_dict is not None:
         model.load_state_dict(dict(state_dict), strict=True)
-    model = model.to(dev).eval()
-    model.cast_(_DTYPES[cfg.compute_dtype])
+    model = model.to(dev)
+    if train:
+        return model.train()
+    model.eval().cast_(DTYPES[cfg.compute_dtype])
     for p in model.parameters():
         p.requires_grad_(False)
     return model

@@ -24,14 +24,15 @@ class GlobalAttentionPooling(nn.Module):
         self.ques_nn = mlp(c, c, c, gelu_last=False)
 
     def forward(self, x, u, node_mask_b,
-                node_mask: Optional[torch.Tensor] = None):
+                node_mask: Optional[torch.Tensor] = None,
+                dtype: Optional[torch.dtype] = None):
         """``x [B, N, F]``, ``u [B, C]``, ``node_mask_b [B, N]`` validity,
         ``node_mask [B, N, 1]`` the sampled mask -> (pooled [B, C],
-        gate [B, N, 1])."""
-        xn = self.node_nn(x)
+        gate [B, N, 1]); products at ``dtype``."""
+        xn = self.node_nn(x, dtype)
         if node_mask is not None:
             xn = xn * node_mask
-        uq = self.ques_nn(u)
+        uq = self.ques_nn(u, dtype)
         gate = torch.einsum("bnd,bd->bn", xn.float(), uq.float())
         gate = gate / math.sqrt(xn.shape[-1])
         gate = node_softmax(gate, node_mask_b)[..., None].to(xn.dtype)

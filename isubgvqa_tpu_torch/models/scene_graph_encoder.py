@@ -7,7 +7,11 @@
 * edge embeddings multiplied by the batch's per-edge sign (added
   symmetric edges are negated, ``scene_graph_encoder.py:80``);
 * one MetaLayer round + GraphNorm through
-  :func:`~isubgvqa_tpu_torch.ops.metalayer_kernel.fused_metalayer`.
+  :func:`~isubgvqa_tpu_torch.ops.metalayer_kernel.fused_metalayer`
+  (eval) or the differentiable
+  :func:`~isubgvqa_tpu_torch.ops.metalayer_train.fused_metalayer_train`
+  (training, where the three masked BatchNorms use batch statistics and
+  update their running ones, ``scene_graph_encoder.py:103-117``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 
 from ..data.batching import GraphBatch
 from ..ops.metalayer_kernel import fused_metalayer
+from ..ops.metalayer_train import fused_metalayer_train
 from .layers import GraphNorm, MaskedBatchNorm, linear, mlp
 
 
@@ -69,26 +74,27 @@ class SceneGraphEncoder(nn.Module):
             "gn_w": gn.weight, "gn_b": gn.bias, "gn_a": gn.mean_scale,
         }
 
-    def forward(self, batch: GraphBatch, dtype: torch.dtype):
+    def forward(self, batch: GraphBatch, dtype: torch.dtype,
+                train: bool = False):
         """-> (x_encoded [B, N, 300], edge_attr_encoded [B, E, 300])."""
         emb = self.sg_vocab_embedding.weight
         tok = F.embedding(batch.node_tokens.long(), emb)      # [B, N, 4, C]
-        x_sum = tok.float().sum(-2).to(dtype)
+        x_sum = tok.to(dtype).float().sum(-2).to(dtype)
         node_mask = batch.node_mask
 
         bb = batch.node_bbox.to(dtype)
         seq = self.bbox_encoding
-        bb = seq[0](bb, node_mask)
-        bb = F.gelu(linear(bb, seq[1]))
-        bb = seq[3](bb, node_mask)
-        bb = F.gelu(linear(bb, seq[4]))
+        bb = seq[0](bb, node_mask, train)
+        bb = F.gelu(linear(bb, seq[1], dtype))
+        bb = seq[3](bb, node_mask, train)
+        bb = F.gelu(linear(bb, seq[4], dtype))
 
         x = torch.cat([x_sum, bb.to(dtype)], dim=-1)
-        x = self.feat_reduc[0](x, node_mask)
-        x = F.gelu(linear(x, self.feat_reduc[1]))
+        x = self.feat_reduc[0](x, node_mask, train)
+        x = F.gelu(linear(x, self.feat_reduc[1], dtype))
 
-        e = (F.embedding(batch.edge_token.long(), emb)
-             * batch.edge_sign[..., None].to(emb.dtype)).to(dtype)
-        return fused_metalayer(x, e, batch.edge_src, batch.edge_dst,
-                               batch.edge_mask, batch.node_mask,
-                               self.kernel_params())
+        e = (F.embedding(batch.edge_token.long(), emb).to(dtype)
+             * batch.edge_sign[..., None].to(dtype))
+        layer = fused_metalayer_train if train else fused_metalayer
+        return layer(x, e, batch.edge_src, batch.edge_dst, batch.edge_mask,
+                     batch.node_mask, self.kernel_params())

@@ -1,7 +1,7 @@
 """Kernels of the port.
 
 Each fused layer lives in its own module beside its plain PyTorch
-version and a launch counter (``<wrapper>.launches``):
+version and a launch counter (``<wrapper>.launches``).  Eval:
 
 * :func:`~.gat_kernel.fused_gat_layer` (replaces the Pallas
   ``ops/pallas/gat_kernel.py:fused_gat_layer``);
@@ -9,31 +9,62 @@ version and a launch counter (``<wrapper>.launches``):
   :func:`~.text_kernel.fused_decoder_layer` (``text_kernel.py``);
 * :func:`~.metalayer_kernel.fused_metalayer` (``metalayer_kernel.py``).
 
+Training, each a ``torch.autograd.Function`` whose forward and backward
+launch kernels, counted apart (``.launches`` and ``.bwd_launches``):
+
+* :func:`~.gat_train.fused_gatconv` (``ops/pallas/gat_train.py``);
+* :func:`~.metalayer_train.fused_metalayer_train`
+  (``metalayer_train.py``);
+* :func:`~.text_train.fused_encoder_layer_train` and
+  :func:`~.text_train.fused_decoder_layer_train` (``text_train.py``).
+
 The CUDA sources are under ``isubgvqa_tpu_torch/csrc/``; :mod:`._lib`
 builds and loads them on first use.
 """
 
 from .gat_kernel import fused_gat_layer, fused_gat_layer_plain
+from .gat_train import fused_gatconv, fused_gatconv_plain
 from .metalayer_kernel import fused_metalayer, fused_metalayer_plain
+from .metalayer_train import (fused_metalayer_train,
+                              fused_metalayer_train_plain)
 from .text_kernel import (fused_decoder_layer, fused_decoder_layer_plain,
                           fused_encoder_layer, fused_encoder_layer_plain)
+from .text_train import (fused_decoder_layer_train,
+                         fused_decoder_layer_train_plain,
+                         fused_encoder_layer_train,
+                         fused_encoder_layer_train_plain)
 
-WRAPPERS = (fused_gat_layer, fused_encoder_layer, fused_decoder_layer,
-            fused_metalayer)
+EVAL_WRAPPERS = (fused_gat_layer, fused_encoder_layer, fused_decoder_layer,
+                 fused_metalayer)
+TRAIN_WRAPPERS = (fused_gatconv, fused_metalayer_train,
+                  fused_encoder_layer_train, fused_decoder_layer_train)
+WRAPPERS = EVAL_WRAPPERS + TRAIN_WRAPPERS
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in TRAIN_WRAPPERS:
+        fn.bwd_launches = 0
 
 
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+def launch_counts(wrappers=WRAPPERS) -> dict:
+    """``{name: forward launches}``, and ``{name + "_bwd": backward
+    launches}`` for the training wrappers among ``wrappers``."""
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    counts.update({fn.__name__ + "_bwd": fn.bwd_launches
+                   for fn in wrappers if fn in TRAIN_WRAPPERS})
+    return counts
 
 
 __all__ = [
     "fused_gat_layer", "fused_gat_layer_plain", "fused_metalayer",
     "fused_metalayer_plain", "fused_encoder_layer",
     "fused_encoder_layer_plain", "fused_decoder_layer",
-    "fused_decoder_layer_plain", "reset_launch_counts", "launch_counts",
+    "fused_decoder_layer_plain", "fused_gatconv", "fused_gatconv_plain",
+    "fused_metalayer_train", "fused_metalayer_train_plain",
+    "fused_encoder_layer_train", "fused_encoder_layer_train_plain",
+    "fused_decoder_layer_train", "fused_decoder_layer_train_plain",
+    "EVAL_WRAPPERS", "TRAIN_WRAPPERS", "WRAPPERS", "reset_launch_counts",
+    "launch_counts",
 ]

@@ -34,16 +34,31 @@ _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None     # wall time of the last build
 build_log: str = ""                       # nvcc output of the last build
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 _SIGNATURES = {
-    "isg_gemm": [P, P, I, I, P, P, I, I, P, P, I, I, I, P, I, P, P, P, I,
-                 I, I, I, I, I, I, P],
-    "isg_attention": [P, I, P, I, P, I, P, P, I, I, I, I, I, I, F, I, P],
-    "isg_residual_ln": [P, I, P, P, P, P, P, P, P, I, I, I, F, P],
+    "isg_gemm": [P, P, I, I] * 3 + [I, P, I, P, P, P, P, P, I, I, I, I, I,
+                                    I, I, P],
+    "isg_gemm_any": [P, I, I, P, P, I, I, P, I, I, I, I, I, P, I, P],
+    "isg_reduce_rows": [P, P, I, I, I, I, I, P],
+    "isg_colsum": [P, I, I, I, P, I, P, I, P],
+    "isg_attention": [P, I, P, I, P, I, P, P, P, P, I, I, I, I, I, I, F, I,
+                      P],
+    "isg_attention_bwd": [P, I, P, I, P, I, P, P, P, I, P, I, P, I, P, I, I,
+                          I, I, I, I, F, I, P],
+    "isg_residual_ln": [P, I, P, P, P, P, P, P, P, P, P, I, I, I, F, P],
+    "isg_ln_bwd": [P, I, P, P, P, P, P, P, I, I, I, F, P],
+    "isg_relu_bwd": [P, P, I, P, P, L, P],
     "isg_scatter_mean": [P, P, P, P, I, I, I, I, I, P],
+    "isg_scatter_mean_bwd": [P, P, P, P, I, I, I, I, P],
+    "isg_scatter_rows": [P, P, P, P, P, P, I, I, I, I, P],
     "isg_graph_norm": [P, P, P, P, I, P, P, P, P, I, I, I, I, F, P],
+    "isg_graph_norm_bwd": [P, I, P, P, P, P, P, P, I, I, I, F, P],
+    "isg_gelu_bwd": [P, P, P, L, P],
     "isg_instr_gelu": [P, P, P, I, I, I, I, P],
     "isg_gat_edge": [P, P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "isg_gat_edge_train": [P, P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                           P],
+    "isg_gat_edge_bwd": [P, P, P, I] + [P] * 13 + [I] * 5 + [P],
 }
 
 

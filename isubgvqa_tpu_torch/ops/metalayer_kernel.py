@@ -24,7 +24,8 @@ edges gather zero rows (their one-hot rows are zero on the TPU), so
 exactly as in the JAX kernel.
 
 On a CPU tensor the wrapper runs :func:`fused_metalayer_plain`; on a
-CUDA tensor it launches the kernels or raises.
+CUDA tensor it launches the kernels or raises.  :func:`metalayer_launch`
+can keep what the training backward reads (:mod:`.metalayer_train`).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _lib
-from .gemm import gemm, linear_plain
+from .gemm import gemm, linear_plain, ste
 
 GN_EPS = 1e-5
 NEG = -1.0e30
@@ -71,33 +72,35 @@ def gather_rows(x, idx, valid):
 
 
 def fused_metalayer_plain(x, e_attr, src, dst, edge_mask, node_mask, params):
+    """Plain version of the round; with f32 master ``params`` and a grad
+    enabled it is also the training layer's plain version (every rounding
+    to the model dtype ``x.dtype`` goes through :func:`.gemm.ste`)."""
     p = params
     dtype = x.dtype
     c = x.shape[-1]
     n = x.shape[1]
+    lin = lambda a, w, b=None: linear_plain(a, w, b, dtype=dtype)
     xf = x.float()
-    ef = e_attr.to(dtype).float()
+    ef = ste(e_attr, dtype)
     xs = gather_rows(xf, src, edge_mask)
     xd = gather_rows(xf, dst, edge_mask)
     w1 = p["ew1"]
-    h = F.gelu(linear_plain(xs, w1[:, :c]) + linear_plain(xd, w1[:, c:2 * c])
-               + linear_plain(ef, w1[:, 2 * c:]) + p["eb1"].float())
-    e_out = linear_plain(h.to(dtype), p["ew2"], p["eb2"]).to(dtype)
+    h = F.gelu(lin(xs, w1[:, :c]) + lin(xd, w1[:, c:2 * c])
+               + lin(ef, w1[:, 2 * c:]) + p["eb1"].float())
+    e_out = ste(lin(h, p["ew2"], p["eb2"]), dtype)
     n1 = p["n1w1"]
-    m = F.gelu(linear_plain(xs, n1[:, :c]) + linear_plain(e_out, n1[:, c:])
-               + p["n1b1"].float())
-    m = linear_plain(m.to(dtype), p["n1w2"], p["n1b2"])
+    m = F.gelu(lin(xs, n1[:, :c]) + lin(e_out, n1[:, c:]) + p["n1b1"].float())
+    m = lin(m, p["n1w2"], p["n1b2"])
     m = m * edge_mask.float()[..., None]
     oh_dst = F.one_hot(dst.long(), n).float() * edge_mask.float()[..., None]
     agg = torch.einsum("ben,bec->bnc", oh_dst, m)
     deg = torch.clamp(oh_dst.sum(1), min=1.0)[..., None]
-    agg = (agg / deg).to(dtype)
+    agg = ste(agg / deg, dtype)
     n2 = p["n2w1"]
-    out = F.gelu(linear_plain(xf, n2[:, :c]) + linear_plain(agg, n2[:, c:])
-                 + p["n2b1"].float())
-    out = linear_plain(out.to(dtype), p["n2w2"], p["n2b2"])
+    out = F.gelu(lin(xf, n2[:, :c]) + lin(agg, n2[:, c:]) + p["n2b1"].float())
+    out = lin(out, p["n2w2"], p["n2b2"])
     x_out = graph_norm_plain(out, node_mask, p["gn_w"], p["gn_b"], p["gn_a"])
-    return x_out.to(dtype), e_out
+    return x_out.to(dtype), e_out.to(dtype)
 
 
 def graph_index(pos, edge_mask, n: int):
@@ -112,14 +115,11 @@ def graph_index(pos, edge_mask, n: int):
     return g.reshape(-1).contiguous()
 
 
-def fused_metalayer(x, e_attr, src, dst, edge_mask, node_mask, params):
-    """``x [B, N, C]``, ``e_attr [B, E, C]`` at the model dtype ->
-    ``(x_out [B, N, C], e_out [B, E, C])``.  ``params``: :data:`KEYS`,
-    weights as torch Linear ``[out, in]`` (the edge MLP's first weight
-    is ``[C, 3C]``), vectors f32."""
-    if not x.is_cuda:
-        return fused_metalayer_plain(x, e_attr, src, dst, edge_mask,
-                                     node_mask, params)
+def metalayer_launch(x, e_attr, src, dst, edge_mask, node_mask, params,
+                     save: bool = False):
+    """The round's launches on CUDA tensors, ``params`` shipped.  Returns
+    ``(x_out, e_out, saved)``; with ``save`` the GEMMs also write their
+    f32 pre-activations and ``saved`` keeps what the backward reads."""
     p = params
     b, n, c = x.shape
     e = src.shape[1]
@@ -132,18 +132,23 @@ def fused_metalayer(x, e_attr, src, dst, edge_mask, node_mask, params):
     nm = node_mask.to(torch.float32).contiguous()
     gsrc = graph_index(src, edge_mask, n)
     gdst = graph_index(dst, edge_mask, n)
+    pre = ((lambda rows: torch.empty((rows, c), dtype=torch.float32,
+                                     device=x.device))
+           if save else (lambda rows: None))
+    h1, m1p, o1p = pre(b * e), pre(b * e), pre(b * n)
     h = gemm([(xt, gsrc), (xt, gdst), (et, None)], p["ew1"], p["eb1"],
-             act="gelu", out_dtype=dtype)
+             act="gelu", out_dtype=dtype, pre=h1)
     e_out = gemm([(h, None)], p["ew2"], p["eb2"], out_dtype=dtype)
     m1 = gemm([(xt, gsrc), (e_out, None)], p["n1w1"], p["n1b1"], act="gelu",
-              out_dtype=dtype)
+              out_dtype=dtype, pre=m1p)
     m = gemm([(m1, None)], p["n1w2"], p["n1b2"], row_scale=em.reshape(-1))
     agg = torch.empty((b * n, c), dtype=dtype, device=x.device)
     dst32 = dst.to(torch.int32).contiguous()
+    src32 = src.to(torch.int32).contiguous()
     _lib.call("isg_scatter_mean", m.data_ptr(), dst32.data_ptr(),
               em.data_ptr(), agg.data_ptr(), _lib.dt(agg), b, n, e, c)
     o1 = gemm([(xt, None), (agg, None)], p["n2w1"], p["n2b1"], act="gelu",
-              out_dtype=dtype)
+              out_dtype=dtype, pre=o1p)
     o2 = gemm([(o1, None)], p["n2w2"], p["n2b2"])
     x_out = torch.empty((b * n, c), dtype=dtype, device=x.device)
     _lib.check_cuda(p["gn_w"], p["gn_b"], p["gn_a"])
@@ -151,8 +156,25 @@ def fused_metalayer(x, e_attr, src, dst, edge_mask, node_mask, params):
               _lib.dt(x), p["gn_w"].data_ptr(), p["gn_b"].data_ptr(),
               p["gn_a"].data_ptr(), x_out.data_ptr(), _lib.dt(x_out), b, n,
               c, GN_EPS)
+    saved = (dict(xt=xt, et=et, em=em, nm=nm, gsrc=gsrc, gdst=gdst,
+                  src32=src32, dst32=dst32, h1=h1, h=h, e_out=e_out, m1p=m1p,
+                  m1=m1, agg=agg, o1p=o1p, o1=o1, o2=o2)
+             if save else None)
+    return x_out.reshape(b, n, c), e_out.reshape(b, e, c), saved
+
+
+def fused_metalayer(x, e_attr, src, dst, edge_mask, node_mask, params):
+    """``x [B, N, C]``, ``e_attr [B, E, C]`` at the model dtype ->
+    ``(x_out [B, N, C], e_out [B, E, C])``.  ``params``: :data:`KEYS`,
+    weights as torch Linear ``[out, in]`` (the edge MLP's first weight
+    is ``[C, 3C]``), vectors f32."""
+    if not x.is_cuda:
+        return fused_metalayer_plain(x, e_attr, src, dst, edge_mask,
+                                     node_mask, params)
+    x_out, e_out, _ = metalayer_launch(x, e_attr, src, dst, edge_mask,
+                                       node_mask, params)
     fused_metalayer.launches += 1
-    return x_out.reshape(b, n, c), e_out.reshape(b, e, c)
+    return x_out, e_out
 
 
 fused_metalayer.launches = 0

@@ -20,7 +20,9 @@ the tensor cores, ``csrc/gemm.cu``).
 
 On a CPU tensor the wrapper runs the ``*_plain`` version, the same
 arithmetic in plain PyTorch.  On a CUDA tensor it launches the kernels
-or raises.
+or raises.  The plain versions take optional dropout keep masks (the
+training layers' forward, :mod:`.text_train`); the launches can keep
+what the training backward reads (``save=True``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _lib
-from .gemm import gemm, linear_plain
+from .gemm import gemm, linear_plain, ste
 
 LN_EPS = 1e-6      # flax nn.LayerNorm default, as in the JAX package
 
@@ -54,57 +56,83 @@ def ln_plain(x: torch.Tensor, scale, bias):
 
 
 def mha_plain(q_in, kv_in, colbias, in_w, in_b, out_w, out_b,
-              num_heads: int, dtype: torch.dtype) -> torch.Tensor:
+              num_heads: int, dtype: torch.dtype,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-head attention as inside ``_mha``: q/k/v and the
-    probabilities rounded to ``dtype`` before their products, the key
+    probabilities (times the dropout ``keep`` mask ``[B, H, Lq, Lk]``,
+    when given) rounded to ``dtype`` before their products, the key
     bias ADDED to the logits.  Returns the f32 output projection."""
     b, lq, d = q_in.shape
     lk = kv_in.shape[1]
     dh = d // num_heads
 
     def heads(t, n):
-        return t.to(dtype).float().reshape(b, n, num_heads, dh).transpose(1, 2)
+        return ste(t, dtype).reshape(b, n, num_heads, dh).transpose(1, 2)
 
-    q = heads(linear_plain(q_in, in_w[:d], in_b[:d]), lq)
-    k = heads(linear_plain(kv_in, in_w[d:2 * d], in_b[d:2 * d]), lk)
-    v = heads(linear_plain(kv_in, in_w[2 * d:], in_b[2 * d:]), lk)
+    q = heads(linear_plain(q_in, in_w[:d], in_b[:d], dtype=dtype), lq)
+    k = heads(linear_plain(kv_in, in_w[d:2 * d], in_b[d:2 * d],
+                           dtype=dtype), lk)
+    v = heads(linear_plain(kv_in, in_w[2 * d:], in_b[2 * d:], dtype=dtype),
+              lk)
     sc = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
     if colbias is not None:
         sc = sc + colbias.float()[:, None, None, :]
-    p = torch.softmax(sc, dim=-1).to(dtype).float()
-    o = (p @ v).to(dtype).transpose(1, 2).reshape(b, lq, d)
-    return linear_plain(o, out_w, out_b)
+    p = torch.softmax(sc, dim=-1)
+    if keep is not None:
+        p = p * keep
+    o = ste(ste(p, dtype) @ v, dtype).transpose(1, 2).reshape(b, lq, d)
+    return linear_plain(o, out_w, out_b, dtype=dtype)
+
+
+def masks_at(masks, dtype):
+    """Dropout keep masks as f32 tensors holding values of ``dtype`` (the
+    Pallas training kernels ship them at the model dtype); ``{}`` when
+    there are none."""
+    return {k: v.to(dtype).float() for k, v in (masks or {}).items()}
+
+
+def _mul(x, m):
+    return x if m is None else x * m
 
 
 def fused_encoder_layer_plain(x, key_mask, params, num_heads: int = 8,
-                              final_ln: Optional[Tuple] = None):
+                              final_ln: Optional[Tuple] = None,
+                              masks: Optional[dict] = None):
+    """``masks``: the training layer's keep masks (``attn [B,H,L,L]``,
+    ``post_attn``, ``ffn``, ``post_ffn``), or None for no dropout."""
     p = params
+    dtype = x.dtype
+    m = masks_at(masks, dtype)
     xf = x.float()
     attn = mha_plain(xf, xf, key_mask, p["in_w"], p["in_b"], p["out_w"],
-                     p["out_b"], num_heads, x.dtype)
-    x1 = ln_plain(xf + attn, p["n1s"], p["n1b"])
-    y = linear_plain(linear_plain(x1, p["w1"], p["b1"], "relu"),
-                     p["w2"], p["b2"])
+                     p["out_b"], num_heads, dtype, m.get("attn"))
+    x1 = ln_plain(xf + _mul(attn, m.get("post_attn")), p["n1s"], p["n1b"])
+    h = _mul(linear_plain(x1, p["w1"], p["b1"], "relu", dtype), m.get("ffn"))
+    y = _mul(linear_plain(h, p["w2"], p["b2"], dtype=dtype), m.get("post_ffn"))
     out = ln_plain(x1 + y, p["n2s"], p["n2b"])
     if final_ln is not None:
         out = ln_plain(out, *final_ln)
-    return out.to(x.dtype)
+    return out.to(dtype)
 
 
 def fused_decoder_layer_plain(tgt, memory, params, num_heads: int = 8,
-                              final_ln: Optional[Tuple] = None):
+                              final_ln: Optional[Tuple] = None,
+                              masks: Optional[dict] = None):
+    """``masks``: ``self_attn [B,H,T,T]``, ``post_sa``, ``cross_attn
+    [B,H,T,L]``, ``post_ca``, ``ffn``, ``post_ffn``, or None."""
     p = params
     dtype = memory.dtype
-    t = tgt.to(dtype).float()
+    m = masks_at(masks, dtype)
+    t = ste(tgt, dtype)
     mem = memory.float()
     sa = mha_plain(t, t, None, p["s_in_w"], p["s_in_b"], p["s_out_w"],
-                   p["s_out_b"], num_heads, dtype)
-    t = ln_plain(t + sa, p["n1s"], p["n1b"])
+                   p["s_out_b"], num_heads, dtype, m.get("self_attn"))
+    t = ln_plain(t + _mul(sa, m.get("post_sa")), p["n1s"], p["n1b"])
     ca = mha_plain(t, mem, None, p["c_in_w"], p["c_in_b"], p["c_out_w"],
-                   p["c_out_b"], num_heads, dtype)
-    t = ln_plain(t + ca, p["n2s"], p["n2b"])
-    y = linear_plain(linear_plain(t, p["w1"], p["b1"], "relu"),
-                     p["w2"], p["b2"])
+                   p["c_out_b"], num_heads, dtype, m.get("cross_attn"))
+    t = ln_plain(t + _mul(ca, m.get("post_ca")), p["n2s"], p["n2b"])
+    h = _mul(linear_plain(t, p["w1"], p["b1"], "relu", dtype), m.get("ffn"))
+    y = _mul(linear_plain(h, p["w2"], p["b2"], dtype=dtype), m.get("post_ffn"))
     t = ln_plain(t + y, p["n3s"], p["n3b"])
     if final_ln is not None:
         t = ln_plain(t, *final_ln)
@@ -114,29 +142,37 @@ def fused_decoder_layer_plain(tgt, memory, params, num_heads: int = 8,
 # ------------------------------------------------------------- launches
 
 def _attention(q, q_off, q_rs, kv, k_off, v_off, kv_rs, bias, b, lq, lk,
-               d, num_heads):
+               d, num_heads, keep=None, probs=None):
     """Attention core over row-major activations; head h of row r of
-    question i sits at ``base[(i * L + r) * rs + off + h * dh]``."""
+    question i sits at ``base[(i * L + r) * rs + off + h * dh]``.
+    ``keep [B, H, Lq, Lk]`` (f32) multiplies the probabilities; ``probs``
+    (f32, same shape) receives them before the mask."""
     es = q.element_size()
     o = torch.empty((b * lq, d), dtype=q.dtype, device=q.device)
     dh = d // num_heads
+    _lib.check_cuda(keep, probs)
     _lib.call("isg_attention", q.data_ptr() + q_off * es, q_rs,
               kv.data_ptr() + k_off * es, kv_rs, kv.data_ptr() + v_off * es,
-              kv_rs, _lib.ptr(bias), o.data_ptr(), d, b, lq, lk, num_heads,
+              kv_rs, _lib.ptr(bias), _lib.ptr(keep), _lib.ptr(probs),
+              o.data_ptr(), d, b, lq, lk, num_heads,
               dh, 1.0 / math.sqrt(dh), _lib.dt(q))
     return o
 
 
-def _residual_ln(x, y, s, bb, final_ln=None, out_f32=True, out_t=None):
+def _residual_ln(x, y, s, bb, final_ln=None, out_f32=True, out_t=None,
+                 ymask=None, z_out=None):
+    """LN(x + y * ymask), optionally followed by ``final_ln``; ``z_out``
+    (f32 ``[M, D]``) receives the pre-LN sum."""
     m, d = x.shape
     of = (torch.empty((m, d), dtype=torch.float32, device=x.device)
           if out_f32 else None)
     ot = (torch.empty((m, d), dtype=out_t, device=x.device)
           if out_t is not None else None)
     fs, fb = final_ln if final_ln is not None else (None, None)
-    _lib.check_cuda(x, y, s, bb, fs, fb)
+    _lib.check_cuda(x, y, s, bb, fs, fb, ymask, z_out)
     _lib.call("isg_residual_ln", x.data_ptr(), _lib.dt(x), _lib.ptr(y),
               s.data_ptr(), bb.data_ptr(), _lib.ptr(fs), _lib.ptr(fb),
+              _lib.ptr(ymask), _lib.ptr(z_out),
               _lib.ptr(of), _lib.ptr(ot), _lib.dt(ot) if ot is not None else 0,
               m, d, LN_EPS)
     return of, ot
@@ -146,6 +182,50 @@ def _check_shapes(l: int, d: int, num_heads: int):
     if l > 64 or d % num_heads or d // num_heads > 128 or d > 1024:
         raise ValueError(f"text kernels take L <= 64, D <= 1024 and head "
                          f"width <= 128 (got L={l}, D={d}, H={num_heads})")
+
+
+def _rows(m, r):
+    return None if m is None else m.reshape(r, -1).contiguous()
+
+
+def encoder_launch(x, key_mask, params, num_heads: int = 8,
+                   final_ln: Optional[Tuple] = None,
+                   masks: Optional[dict] = None, save: bool = False):
+    """The encoder layer's launches on CUDA tensors.  ``params`` shipped
+    (weights at the model dtype), ``masks`` f32 keep masks or None.
+    Returns ``(out [B, L, D], saved)``; ``saved`` holds what the training
+    backward reads when ``save``."""
+    p = params
+    b, l, d = x.shape
+    _check_shapes(l, d, num_heads)
+    dtype = x.dtype
+    r = b * l
+    m = masks or {}
+    keep = None if m.get("attn") is None else m["attn"].contiguous()
+    m1, mf, m2 = (_rows(m.get(k), r) for k in ("post_attn", "ffn",
+                                                "post_ffn"))
+    xt = x.reshape(r, d).contiguous()
+    kb = key_mask.to(torch.float32).contiguous()
+    _lib.check_cuda(kb)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    probs = torch.empty((b, num_heads, l, l), **f32) if save else None
+    z1 = torch.empty((r, d), **f32) if save else None
+    z2 = torch.empty((r, d), **f32) if save else None
+    qkv = gemm([(xt, None)], p["in_w"], p["in_b"], out_dtype=dtype)
+    o = _attention(qkv, 0, 3 * d, qkv, d, 2 * d, 3 * d, kb, b, l, l, d,
+                   num_heads, keep, probs)
+    a = gemm([(o, None)], p["out_w"], p["out_b"])
+    x1f, x1t = _residual_ln(xt, a, p["n1s"], p["n1b"], out_t=dtype,
+                            ymask=m1, z_out=z1)
+    hid = gemm([(x1t, None)], p["w1"], p["b1"], act="relu", out_dtype=dtype,
+               emul=mf)
+    y = gemm([(hid, None)], p["w2"], p["b2"])
+    _, out = _residual_ln(x1f, y, p["n2s"], p["n2b"], final_ln,
+                          out_f32=False, out_t=dtype, ymask=m2, z_out=z2)
+    saved = (dict(xt=xt, kb=kb, keep=keep, m1=m1, mf=mf, m2=m2, qkv=qkv,
+                  probs=probs, o=o, z1=z1, x1t=x1t, hid=hid, z2=z2)
+             if save else None)
+    return out.reshape(b, l, d), saved
 
 
 def fused_encoder_layer(x, key_mask, params, num_heads: int = 8,
@@ -158,27 +238,62 @@ def fused_encoder_layer(x, key_mask, params, num_heads: int = 8,
     if not x.is_cuda:
         return fused_encoder_layer_plain(x, key_mask, params, num_heads,
                                          final_ln)
-    p = params
-    b, l, d = x.shape
-    _check_shapes(l, d, num_heads)
-    dtype = x.dtype
-    xt = x.reshape(b * l, d).contiguous()
-    kb = key_mask.to(torch.float32).contiguous()
-    _lib.check_cuda(kb)
-    qkv = gemm([(xt, None)], p["in_w"], p["in_b"], out_dtype=dtype)
-    o = _attention(qkv, 0, 3 * d, qkv, d, 2 * d, 3 * d, kb, b, l, l, d,
-                   num_heads)
-    a = gemm([(o, None)], p["out_w"], p["out_b"])
-    x1f, x1t = _residual_ln(xt, a, p["n1s"], p["n1b"], out_t=dtype)
-    hid = gemm([(x1t, None)], p["w1"], p["b1"], act="relu", out_dtype=dtype)
-    y = gemm([(hid, None)], p["w2"], p["b2"])
-    _, out = _residual_ln(x1f, y, p["n2s"], p["n2b"], final_ln,
-                          out_f32=False, out_t=dtype)
+    out, _ = encoder_launch(x, key_mask, params, num_heads, final_ln)
     fused_encoder_layer.launches += 1
-    return out.reshape(b, l, d)
+    return out
 
 
 fused_encoder_layer.launches = 0
+
+
+def decoder_launch(tgt, memory, params, num_heads: int = 8,
+                   final_ln: Optional[Tuple] = None,
+                   masks: Optional[dict] = None, save: bool = False):
+    """The decoder layer's launches on CUDA tensors (see
+    :func:`encoder_launch`)."""
+    p = params
+    b, t, d = tgt.shape
+    l = memory.shape[1]
+    _check_shapes(max(t, l), d, num_heads)
+    dtype = memory.dtype
+    rt = b * t
+    m = masks or {}
+    ks = None if m.get("self_attn") is None else m["self_attn"].contiguous()
+    kc = None if m.get("cross_attn") is None else m["cross_attn"].contiguous()
+    m1, m2, mf, m3 = (_rows(m.get(k), rt) for k in ("post_sa", "post_ca",
+                                                     "ffn", "post_ffn"))
+    f32 = dict(dtype=torch.float32, device=tgt.device)
+    ps = torch.empty((b, num_heads, t, t), **f32) if save else None
+    pc = torch.empty((b, num_heads, t, l), **f32) if save else None
+    z1, z2, z3 = ((torch.empty((rt, d), **f32) if save else None)
+                  for _ in range(3))
+    tt = tgt.to(dtype).reshape(rt, d).contiguous()
+    mt = memory.reshape(b * l, d).contiguous()
+    qkv = gemm([(tt, None)], p["s_in_w"], p["s_in_b"], out_dtype=dtype)
+    o_s = _attention(qkv, 0, 3 * d, qkv, d, 2 * d, 3 * d, None, b, t, t, d,
+                     num_heads, ks, ps)
+    a = gemm([(o_s, None)], p["s_out_w"], p["s_out_b"])
+    t1f, t1t = _residual_ln(tt, a, p["n1s"], p["n1b"], out_t=dtype,
+                            ymask=m1, z_out=z1)
+    q = gemm([(t1t, None)], p["c_in_w"][:d], p["c_in_b"][:d],
+             out_dtype=dtype)
+    kv = gemm([(mt, None)], p["c_in_w"][d:], p["c_in_b"][d:],
+              out_dtype=dtype)
+    o_c = _attention(q, 0, d, kv, 0, d, 2 * d, None, b, t, l, d, num_heads,
+                     kc, pc)
+    a = gemm([(o_c, None)], p["c_out_w"], p["c_out_b"])
+    t2f, t2t = _residual_ln(t1f, a, p["n2s"], p["n2b"], out_t=dtype,
+                            ymask=m2, z_out=z2)
+    hid = gemm([(t2t, None)], p["w1"], p["b1"], act="relu", out_dtype=dtype,
+               emul=mf)
+    y = gemm([(hid, None)], p["w2"], p["b2"])
+    _, out = _residual_ln(t2f, y, p["n3s"], p["n3b"], final_ln,
+                          out_f32=False, out_t=dtype, ymask=m3, z_out=z3)
+    saved = (dict(tt=tt, mt=mt, ks=ks, kc=kc, m1=m1, m2=m2, mf=mf, m3=m3,
+                  qkv=qkv, ps=ps, o_s=o_s, z1=z1, t1t=t1t, q=q, kv=kv, pc=pc,
+                  o_c=o_c, z2=z2, t2t=t2t, hid=hid, z3=z3)
+             if save else None)
+    return out.reshape(b, t, d), saved
 
 
 def fused_decoder_layer(tgt, memory, params, num_heads: int = 8,
@@ -191,31 +306,9 @@ def fused_decoder_layer(tgt, memory, params, num_heads: int = 8,
     if not memory.is_cuda:
         return fused_decoder_layer_plain(tgt, memory, params, num_heads,
                                          final_ln)
-    p = params
-    b, t, d = tgt.shape
-    l = memory.shape[1]
-    _check_shapes(max(t, l), d, num_heads)
-    dtype = memory.dtype
-    tt = tgt.to(dtype).reshape(b * t, d).contiguous()
-    mt = memory.reshape(b * l, d).contiguous()
-    qkv = gemm([(tt, None)], p["s_in_w"], p["s_in_b"], out_dtype=dtype)
-    o = _attention(qkv, 0, 3 * d, qkv, d, 2 * d, 3 * d, None, b, t, t, d,
-                   num_heads)
-    a = gemm([(o, None)], p["s_out_w"], p["s_out_b"])
-    t1f, t1t = _residual_ln(tt, a, p["n1s"], p["n1b"], out_t=dtype)
-    q = gemm([(t1t, None)], p["c_in_w"][:d], p["c_in_b"][:d],
-             out_dtype=dtype)
-    kv = gemm([(mt, None)], p["c_in_w"][d:], p["c_in_b"][d:],
-              out_dtype=dtype)
-    o = _attention(q, 0, d, kv, 0, d, 2 * d, None, b, t, l, d, num_heads)
-    a = gemm([(o, None)], p["c_out_w"], p["c_out_b"])
-    t2f, t2t = _residual_ln(t1f, a, p["n2s"], p["n2b"], out_t=dtype)
-    hid = gemm([(t2t, None)], p["w1"], p["b1"], act="relu", out_dtype=dtype)
-    y = gemm([(hid, None)], p["w2"], p["b2"])
-    _, out = _residual_ln(t2f, y, p["n3s"], p["n3b"], final_ln,
-                          out_f32=False, out_t=dtype)
+    out, _ = decoder_launch(tgt, memory, params, num_heads, final_ln)
     fused_decoder_layer.launches += 1
-    return out.reshape(b, t, d)
+    return out
 
 
 fused_decoder_layer.launches = 0

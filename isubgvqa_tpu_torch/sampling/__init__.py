@@ -1,6 +1,7 @@
-"""Samplers of the port.  Only the gumbel eval forward is ported so far;
-the imle, aimle and simple samplers and every backward are still to
-port (ROADMAP.md, Queue 1)."""
+"""Samplers of the port: the gumbel sampler (forward and its
+straight-through backward) and the node -> edge gate with its dst-only
+backward.  The imle, aimle and simple samplers are still to port
+(ROADMAP.md, Queue 1)."""
 
 from .gumbel import GumbelSamplerConfig, draw_gumbel, gumbel_topk_sample
 from .topk import topk_mask

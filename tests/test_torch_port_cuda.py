@@ -14,7 +14,11 @@ Tolerances, as max abs error over the output's scale (its max abs, at
 least 1): f32 1e-3 with TF32 off, where kernel and plain version differ
 only in summation order; bf16 3e-2, where they round at the same points
 but another summation order can flip one bf16 rounding (2^-8 relative)
-that later products carry on.
+that later products carry on.  The training layers' gradients: f32 to
+1e-3 of each gradient's own max abs; bf16 by the RMS error over the
+RMS, to 3e-2: the gradients are f32 on both sides, but a flipped bf16
+rounding or ReLU sign moves whole rows of a weight's gradient (see
+``chip_smoke.py:TRAIN_GRAD_TOL``).
 """
 
 import numpy as np
@@ -22,11 +26,13 @@ import pytest
 import torch
 
 from isubgvqa_tpu_torch import ops
+from isubgvqa_tpu_torch.ops import gat_train, metalayer_train, text_train
 from isubgvqa_tpu_torch.models.layers import DecoderLayer, EncoderLayer
 from isubgvqa_tpu_torch.models.mgat import MGAT
 from isubgvqa_tpu_torch.models.scene_graph_encoder import SceneGraphEncoder
 
 TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
 C, HEADS, D, FF, TEXT_HEADS = 16, 4, 64, 128, 4
 DEVICE = "cuda"
 
@@ -114,4 +120,115 @@ def test_cuda_kernels_match_plain_versions(card, dtype):
         check((ops.fused_decoder_layer(tgt, x, dp, TEXT_HEADS, final),),
               (ops.fused_decoder_layer_plain(tgt, x, dp, TEXT_HEADS, final),),
               dtype)
+    torch.cuda.synchronize()
+
+
+def masters(params):
+    """f32 master parameters on the card, as leaves with gradients."""
+    return {k: v.detach().float().to(DEVICE).requires_grad_(True)
+            for k, v in params.items()}
+
+
+def run_both(fn, plain, args, diff, params, cot):
+    """Forward and backward of ``fn`` and of ``plain`` (autograd) on the
+    same inputs; returns both ``(outputs, input grads, param grads)``."""
+    res = []
+    for f in (fn, plain):
+        xs = [a.detach().clone().requires_grad_(True) if i in diff else a
+              for i, a in enumerate(args)]
+        ps = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+        outs = f(*xs, ps)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        sum((o.float() * c).sum() for o, c in zip(outs, cot)).backward()
+        res.append((outs, [xs[i].grad for i in diff],
+                    {k: v.grad for k, v in ps.items()}))
+    return res
+
+
+def check_grads(got, want, dtype, names):
+    # f32: max abs error over max abs; bf16: RMS error over RMS.  A
+    # gradient that is zero in exact arithmetic (a bias that GraphNorm's
+    # mean subtraction cancels) holds only the rounding noise of terms at
+    # the other gradients' scale: floor its scale at 1 % of theirs
+    if dtype == torch.float32:
+        size = lambda t: t.float().abs().max().item()
+    else:
+        size = lambda t: t.float().square().mean().sqrt().item()
+    floor = 1e-2 * max(size(w) for w in want)
+    for g, w, name in zip(got, want, names):
+        assert g is not None and w is not None, name
+        assert torch.isfinite(g.float()).all(), name
+        err = size(g.float() - w.float()) / max(size(w), floor, 1e-12)
+        assert err <= GRAD_TOL[dtype], (name, err)
+
+
+def check_train(res, dtype, diff_names):
+    (ok, ik, pk), (op, ip, pp) = res
+    check(ok, op, dtype)
+    for i, name in enumerate(diff_names):
+        check_grads([ik[i]], [ip[i]], dtype, [name])
+    check_grads([pk[k] for k in pp], [pp[k] for k in pp], dtype, list(pp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_train_kernels_match_autograd_of_plain(card, dtype):
+    """Each training layer's forward and backward kernels against autograd
+    of its plain version: padding edges, a zero-edge graph, a node with
+    no incoming edge, a sampled gate, padded question tokens, dropout
+    masks on."""
+    torch.manual_seed(1)
+    rng = np.random.default_rng(12)
+    b, n, e = 3, 16, 48
+    nm, em, src, dst = graphs(rng, b, n, e)
+    h, ea = randn(b, n, C, dtype=dtype), randn(b, e, C, dtype=dtype)
+    gate = (torch.rand(b, n, 1, device=DEVICE) > 0.4).to(dtype)
+    gp = MGAT(C, 1, HEADS, (1.0,)).layer_params(0)
+    cp = masters({k: gp[k] for k in gat_train.CONV_KEYS})
+    conv_cot = (torch.randn(b, n, HEADS * C, device=DEVICE),
+                torch.randn(b, e, HEADS, device=DEVICE))
+    wrap = lambda f: (lambda xf, g, ea, p: f(xf, g, src, dst, em, ea, p))
+    res = run_both(wrap(gat_train.fused_gatconv),
+                   wrap(gat_train.fused_gatconv_plain), (h, gate, ea),
+                   (0, 1, 2), cp, conv_cot)
+    check_train(res, dtype, ["xf", "gate", "e_attr"])
+    assert gat_train.fused_gatconv.bwd_launches > 0
+
+    mp = masters(SceneGraphEncoder(10, C).kernel_params())
+    wrap = lambda f: (lambda x, ea, p: f(x, ea, src, dst, em, nm, p))
+    res = run_both(wrap(metalayer_train.fused_metalayer_train),
+                   wrap(metalayer_train.fused_metalayer_train_plain), (h, ea),
+                   (0, 1), mp, (torch.randn(b, n, C, device=DEVICE),
+                                torch.randn(b, e, C, device=DEVICE)))
+    check_train(res, dtype, ["x", "e_attr"])
+
+    l, t = 16, 4
+    x = randn(b, l, D, dtype=dtype)
+    mask = torch.ones(b, l, device=DEVICE)
+    mask[0, 8:] = 0.0
+    keep = lambda *s: (torch.rand(*s, device=DEVICE) > 0.1).float() / 0.9
+    em_ = {"attn": keep(b, TEXT_HEADS, l, l), "post_attn": keep(b, l, D),
+           "ffn": keep(b, l, FF), "post_ffn": keep(b, l, D)}
+    ep = masters(EncoderLayer(D, FF).kernel_params())
+    res = run_both(
+        lambda x, p: text_train.fused_encoder_layer_train(x, mask, em_, p,
+                                                          TEXT_HEADS),
+        lambda x, p: text_train.fused_encoder_layer_train_plain(
+            x, mask, em_, p, TEXT_HEADS), (x,), (0,), ep,
+        (torch.randn(b, l, D, device=DEVICE),))
+    check_train(res, dtype, ["x"])
+    tgt = randn(b, t, D, dtype=dtype)
+    dm = {"self_attn": keep(b, TEXT_HEADS, t, t), "post_sa": keep(b, t, D),
+          "cross_attn": keep(b, TEXT_HEADS, t, l), "post_ca": keep(b, t, D),
+          "ffn": keep(b, t, FF), "post_ffn": keep(b, t, D)}
+    dp = masters(DecoderLayer(D, FF).kernel_params())
+    res = run_both(
+        lambda tg, m, p: text_train.fused_decoder_layer_train(tg, m, dm, p,
+                                                              TEXT_HEADS),
+        lambda tg, m, p: text_train.fused_decoder_layer_train_plain(
+            tg, m, dm, p, TEXT_HEADS), (tgt, x), (0, 1), dp,
+        (torch.randn(b, t, D, device=DEVICE),))
+    check_train(res, dtype, ["tgt", "memory"])
     torch.cuda.synchronize()

@@ -7,6 +7,8 @@ import ast
 import importlib
 import os
 import pkgutil
+import subprocess
+import sys
 
 import pytest
 
@@ -46,3 +48,22 @@ def test_every_port_module_imports_without_cuda():
     assert "isubgvqa_tpu_torch.ops.gat_kernel" in names
     for name in names:
         importlib.import_module(name)
+
+
+def test_port_modules_import_without_loading_jax():
+    """Importing every module of the port (the training ones included)
+    in a fresh interpreter leaves ``jax`` and the JAX package out of
+    ``sys.modules``."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import isubgvqa_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'isubgvqa_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert 'isubgvqa_tpu_torch.train.steps' in names\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)

@@ -262,6 +262,9 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     out, alpha = tops.fused_gat_layer(**t, params=_port_gat_params(w, we))
     ref = tops.fused_gat_layer_plain(**t, params=_port_gat_params(w, we))
     assert torch.equal(out, ref[0]) and torch.equal(alpha, ref[1])
+    train = ("fused_gatconv", "fused_metalayer_train",
+             "fused_encoder_layer_train", "fused_decoder_layer_train")
     assert tops.launch_counts() == {
         "fused_gat_layer": 0, "fused_encoder_layer": 0,
-        "fused_decoder_layer": 0, "fused_metalayer": 0}
+        "fused_decoder_layer": 0, "fused_metalayer": 0,
+        **{k: 0 for k in train}, **{k + "_bwd": 0 for k in train}}
