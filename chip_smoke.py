@@ -26,9 +26,12 @@ script exits non-zero):
    encoder and decoder layer), forward and backward, against autograd of
    its plain version at the training path's shapes (B = 256 graphs at
    (N, E) = (16, 64) and (128, 384); B = 256 questions at L = 16 and 32),
-   in f32 (TF32 off) and bf16, with fwd+bwd timings, the bound, SDPA
-   forward+backward as the attention core's yardstick, and device time
-   by kernel at the largest shapes;
+   in f32 (TF32 off) and bf16, with fwd+bwd timings, the bound, the
+   port's attention core forward+backward beside SDPA's on the same q,
+   k, v, bias and cotangent (the core's library yardstick), and device
+   time by kernel at the largest shapes with the backward GEMM's
+   effective TFLOP/s, and the backward GEMM against an f64 product at the
+   main path's longest reduction;
 8. training: ``train_step`` of the full-width config of record (bf16,
    dropouts on) at batch 256 on the GQA-like synthetic mix through the
    bucketed collators, one warm-up step and 5 counted steps over two
@@ -90,6 +93,21 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(statistics.median(times))
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Median host time to issue ``fn`` from an idle device (Python,
+    autograd and launch calls; the device's work is not waited for)."""
+    import torch
+
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return float(statistics.median(times))
 
 
@@ -181,11 +199,21 @@ def phase_build():
     t0 = time.perf_counter()
     path = _lib.build(verbose=True)
     _lib.lib()
-    regs = [ln.strip() for ln in _lib.build_log.splitlines()
-            if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
+    # ptxas's registers and spills of each kernel, by its mangled name
+    # (template arguments after "kernel": If float, 13__nv_bfloat16, Lb1 true)
+    regs, name, spill = [], "", ""
+    for ln in _lib.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = ln.split(",", 1)[1].strip()
+        elif "registers" in ln and name:
+            short = name[name.find("isg") + 5:].split("Ev")[0]
+            regs.append(f"{short}: {ln.split('Used')[1].split(',')[0].strip()}"
+                        f", {spill}")
+            name = ""
     log(f"[2 build] {path} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_lib.build_seconds or 0:.1f} s); ptxas: "
-        f"{'; '.join(regs[:12])}")
+        f"(nvcc {_lib.build_seconds or 0:.1f} s); ptxas: {'; '.join(regs)}")
 
 
 def phase_kernels(model, device):
@@ -566,7 +594,7 @@ def phase_train_kernels(model, device):
                 for k, v in params.items()}
 
     def record(key, info, dtype, fn, plain, inputs, params, cots, flops,
-               largest):
+               largest, gemm_flops=None):
         run, run_plain = (fwd_bwd(f, inputs, params, cots)
                           for f in (fn, plain))
         (outs, grads), (outs_p, grads_p) = run(), run_plain()
@@ -574,32 +602,91 @@ def phase_train_kernels(model, device):
         err, _ = compare(f"{key} {info}", outs, outs_p, tol)
         gerr = compare_grads(f"{key} {info}", grads, grads_p, dtype)
         ms, plain_ms = time_ms(run, iters=5), time_ms(run_plain, iters=5)
+        host = host_ms(run)
         b_ms, b_by = bound(flops, nbytes(inputs, params, cots, outs, grads),
                            dtype)
         log(f"[7 train kernels] {key} {info} {str(dtype)[6:]}: out max abs "
             f"{err:.3g}, gradients RMS error of RMS <= {gerr:.3g}; fwd+bwd "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"{ms:.3f} ms (host issue {host:.3f} ms), plain {plain_ms:.3f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by})")
+        out = dict(max_abs_err=err, grad_err=gerr, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=info,
+                   host_ms=host)
         if largest and dtype == torch.bfloat16:
             _, fam = device_profile(run)
             log(f"[7 train kernels] {key} {info} bfloat16 device time by "
                 f"kernel: {by_kernel(fam) or 'not measured (no CUDA events)'}")
-        return dict(max_abs_err=err, grad_err=gerr, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=info)
+            if gemm_flops and fam.get("gemm_any"):
+                out["gemm_any_tflops"] = gemm_flops / fam["gemm_any"] / 1e9
+                log(f"[7 train kernels] {key} {info} backward GEMM: "
+                    f"{gemm_flops:.4g} FLOP (padding rows counted) in "
+                    f"{fam['gemm_any']:.3f} device ms = "
+                    f"{out['gemm_any_tflops']:.1f} TFLOP/s effective")
+        return out
 
-    def sdpa_fwd_bwd(lq, lk, dtype, bias):
-        """F.scaled_dot_product_attention forward + backward on q, k, v of
-        the layer's shapes: the attention core's library yardstick."""
-        q = torch.randn(b, 8, lq, 64, device=device, dtype=dtype,
-                        requires_grad=True)
-        k, v = (torch.randn(b, 8, lk, 64, device=device, dtype=dtype,
-                            requires_grad=True) for _ in range(2))
-        cot = torch.randn(b, 8, lq, 64, device=device, dtype=dtype)
+    def core_fwd_bwd(name, lq, lk, dtype, bias):
+        """The attention core's forward + backward, like for like: the
+        port's kernels (``isg_attention`` saving the probabilities, then
+        ``isg_attention_bwd``) and F.scaled_dot_product_attention forward
+        + backward, on the same q, k, v, key bias and output cotangent.
+        Returns ``(port ms, SDPA ms)``; SDPA is the library yardstick."""
+        from isubgvqa_tpu_torch.ops.text_kernel import _attention
+
+        q_rows = torch.randn(b * lq, d, device=device).to(dtype)
+        kv = torch.randn(b * lk, 2 * d, device=device).to(dtype)
+        dout = torch.randn(b * lq, d, device=device)
+        heads = lambda t, l: t.view(b, l, 8, 64).transpose(1, 2)
+        q = heads(q_rows, lq).detach().requires_grad_(True)
+        k = heads(kv[:, :d], lk).detach().requires_grad_(True)
+        v = heads(kv[:, d:], lk).detach().requires_grad_(True)
+        cot = heads(dout, lq).to(dtype)
         mask = None if bias is None else bias[:, None, None, :].to(dtype)
-        return time_ms(lambda: torch.autograd.grad(
+
+        def port():
+            probs = torch.empty(b, 8, lq, lk, device=device)
+            _attention(q_rows, 0, d, kv, 0, d, 2 * d, bias, b, lq, lk, d, 8,
+                       None, probs)
+            dq = torch.empty(b * lq, d, device=device)
+            dkv = torch.empty(b * lk, 2 * d, device=device)
+            T.attention_bwd(q_rows, 0, d, kv, 0, d, 2 * d, probs, None, dout,
+                            dq, 0, d, dkv, 0, d, 2 * d, b, lq, lk, d, 8)
+
+        ms = time_ms(port, iters=5)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
             (q, k, v), cot), iters=5)
+        log(f"[7 train kernels] attention core fwd+bwd {name} B={b} "
+            f"Lq={lq} Lk={lk} {str(dtype)[6:]}, same q/k/v/bias/cotangent: "
+            f"port {ms:.4f} ms, SDPA {lib_ms:.4f} ms")
+        return ms, lib_ms
 
+    def gemm_accuracy():
+        """The backward GEMM (``wgrad``: transposed A, split-K, the slices
+        summed by each tile's last block) against an f64 product on
+        same-sign operands, where a truncating accumulation would drift,
+        at K = B * 384, the longest reduction of the main path (#5's
+        lin_edge weight gradient over the batch's edge rows); torch's f32
+        product with TF32 off beside it."""
+        from isubgvqa_tpu_torch.ops import gemm
+
+        gen = torch.Generator(device=device).manual_seed(7)
+        k = b * 384
+        a = torch.rand(k, 64, device=device, generator=gen)
+        x = torch.rand(k, 40, device=device, generator=gen)
+        rel = lambda got, want: ((got.double() - want).abs().max()
+                                 / want.abs().max()).item()
+        errs = [rel(gemm.wgrad(a, xb), a.double().t() @ xb.double())
+                for xb in (x, x.to(torch.bfloat16))]
+        f32 = rel(a.t() @ x, a.double().t() @ x.double())
+        log(f"[7 train kernels] backward GEMM against f64, same-sign "
+            f"operands, K={k}: max abs error over max abs: f32 B "
+            f"{errs[0]:.3g}, bf16 B {errs[1]:.3g}; torch f32 product "
+            f"{f32:.3g}")
+        if not max(errs) <= 4e-6:
+            raise AssertionError(f"backward GEMM error {max(errs):.3g} "
+                                 f"> 4e-6")
+
+    gemm_accuracy()
     gp = model.gat_seq.layer_params(3)
     conv_p = {k: gp[k] for k in G.CONV_KEYS}
     meta_p = model.scene_graph_encoder.kernel_params()
@@ -621,7 +708,8 @@ def phase_train_kernels(model, device):
                        wrap(G.fused_gatconv_plain), inputs, masters(conv_p),
                        (torch.randn(b, n, heads * c, device=device),
                         torch.randn(b, e, heads, device=device)),
-                       G.gatconv_train_flops(nv, ev, c, heads), largest)
+                       G.gatconv_train_flops(nv, ev, c, heads), largest,
+                       gemm_flops=4.0 * heads * c * c * (2 * b * n + b * e))
             entries[("fused_gatconv", dtype)] = r
             inputs = [t.clone().requires_grad_(True) for t in (xf, ea)]
             wrap = lambda f: (lambda x, a, p: f(x, a, src, dst, em, nm, p))
@@ -648,10 +736,10 @@ def phase_train_kernels(model, device):
                            x, km, masks, p, 8),
                        [x.clone().requires_grad_(True)], masters(enc_p),
                        (torch.randn(b, l, d, device=device),),
-                       T.encoder_layer_train_flops(b, l), largest)
-            r["library_ms"] = sdpa_fwd_bwd(l, l, dtype, km)
-            log(f"[7 train kernels] SDPA fwd+bwd self B={b} L={l} "
-                f"{str(dtype)[6:]}: {r['library_ms']:.4f} ms")
+                       T.encoder_layer_train_flops(b, l), largest,
+                       gemm_flops=4.0 * b * l * (4 * d * d + 2 * d * 2048))
+            r["attention_ms"], r["library_ms"] = core_fwd_bwd("self", l, l,
+                                                              dtype, km)
             entries[("fused_encoder_layer_train", dtype)] = r
             tgt = torch.randn(b, 4, d, device=device).to(dtype)
             dmasks = {"self_attn": draw(b, 8, 4, 4), "post_sa": draw(b, 4, d),
@@ -666,10 +754,11 @@ def phase_train_kernels(model, device):
                        [tgt.clone().requires_grad_(True),
                         x.clone().requires_grad_(True)], masters(dec_p),
                        (torch.randn(b, 4, d, device=device),),
-                       T.decoder_layer_train_flops(b, 4, l), largest)
-            r["library_ms"] = sdpa_fwd_bwd(4, l, dtype, None)
-            log(f"[7 train kernels] SDPA fwd+bwd cross B={b} T=4 L={l} "
-                f"{str(dtype)[6:]}: {r['library_ms']:.4f} ms")
+                       T.decoder_layer_train_flops(b, 4, l), largest,
+                       gemm_flops=4.0 * (b * 4 * (6 * d * d + 2 * d * 2048)
+                                         + b * l * 2 * d * d))
+            r["attention_ms"], r["library_ms"] = core_fwd_bwd("cross", 4, l,
+                                                              dtype, None)
             entries[("fused_decoder_layer_train", dtype)] = r
     torch.cuda.synchronize()
     return entries
@@ -906,9 +995,11 @@ def main() -> int:
                        launches_per_step=PER_STEP[k],
                        ms_covers="forward + backward",
                        grad_err=r["grad_err"],
+                       gemm_any_tflops=r.get("gemm_any_tflops"),
                        library_call=("F.scaled_dot_product_attention fwd+bwd,"
                                      " attention core only"
-                                     if r["library_ms"] is not None else None))
+                                     if r["library_ms"] is not None else None),
+                       attention_ms=r.get("attention_ms"))
         else:
             row.update(library_call=("F.scaled_dot_product_attention, "
                                      "attention core only"

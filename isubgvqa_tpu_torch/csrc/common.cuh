@@ -51,6 +51,58 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// A graph's edges grouped by key, a stable counting sort in shared
+// memory.  key(e) is edge e's group in [0, nkeys), or negative to leave
+// the edge out.  On return (after a __syncthreads) off[k] .. off[k + 1] -
+// 1 index the edges of group k in lst, in edge order; cur (nkeys ints) is
+// scratch.  The counts do not depend on the order of their shared-memory
+// atomics, and one warp fills lst 32 edges at a time, ranking the edges of
+// a group within the 32 with __match_any_sync: the same lists on every
+// run.  Called by every thread of the block, with nkeys <= 32 * 64.
+template <typename Key>
+__device__ __forceinline__ void group_edges(int E, int nkeys, Key key,
+                                            int* off, int* cur, int* lst) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid % 32;
+  for (int k = tid; k < nkeys; k += nt) cur[k] = 0;
+  __syncthreads();
+  for (int e = tid; e < E; e += nt) {
+    const int k = key(e);
+    if (k >= 0) atomicAdd(&cur[k], 1);
+  }
+  __syncthreads();
+  if (tid < 32) {
+    // exclusive scan of the counts, each lane over a run of keys
+    const int per = (nkeys + 31) / 32, k0 = min(nkeys, lane * per);
+    const int k1 = min(nkeys, k0 + per);
+    int s = 0;
+    for (int k = k0; k < k1; ++k) s += cur[k];
+    int incl = s;
+    for (int d = 1; d < 32; d *= 2) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    int run = incl - s;
+    for (int k = k0; k < k1; ++k) {
+      const int c = cur[k];
+      off[k] = cur[k] = run;
+      run += c;
+    }
+    if (lane == 31) off[nkeys] = incl;
+    __syncwarp();
+    for (int e0 = 0; e0 < E; e0 += 32) {
+      const int e = e0 + lane;
+      const int k = e < E ? key(e) : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, k);
+      const int rank = __popc(peers & ((1u << lane) - 1u));
+      if (k >= 0) lst[cur[k] + rank] = e;
+      __syncwarp();
+      if (k >= 0 && rank == 0) cur[k] += __popc(peers);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
 // Raise a kernel's dynamic shared-memory cap when it needs more than the
 // default 48 KB (Hopper allows up to 227 KB per block).
 template <typename K>

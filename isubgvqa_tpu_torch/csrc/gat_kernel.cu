@@ -8,17 +8,22 @@
 // isg_instr_gelu: xf = gelu(h * instr[graph]) computed in f32 and
 // rounded to the model dtype (the fuse_instr branch, gat_kernel.py:98-105).
 //
-// isg_gat_edge: one block per graph (N <= 256 nodes, E <= 1024 edges).
-//   1. edge gate gate[src] * gate[dst], 0 on padding edges;
-//   2. one warp per edge: m = x_l[src] + x_r[dst] + eproj, multiplied by
-//      the edge gate before and after leaky-ReLU, dotted with att per
-//      head; padding edges get the logit -1e30;
-//   3. per destination and head: max over incoming valid edges (floor
-//      -1e30) and the sum of exponentials, each by one thread walking the
-//      edges in order (edges are not sorted by destination);
+// isg_gat_edge: one block per (graph, head), B * H blocks (N <= 256
+// nodes, E <= 1024 edges); the logits, the softmax and the head's
+// channels of conv need nothing of the other heads, and four times as many
+// blocks as graphs spread evenly over the 132 SMs (at B = 256, one block
+// per graph would fill them in two uneven waves).
+//   1. edge gate gate[src] * gate[dst], 0 on padding edges, and the
+//      incoming-edge lists per node (common.cuh:group_edges, a stable
+//      counting sort in shared memory);
+//   2. one warp per edge: m = x_l[src] + x_r[dst] + eproj over the head's
+//      channels, multiplied by the edge gate before and after leaky-ReLU,
+//      dotted with att; padding edges get the logit -1e30;
+//   3. per destination: max over incoming valid edges (floor -1e30) and
+//      the sum of exponentials, each by one thread walking its list in
+//      edge order;
 //   4. alpha = exp / (sum if sum > 1e-12 else 1), written out;
-//   5. incoming-edge lists per node (a counting sort in shared memory);
-//   6. conv[n] = sum over incoming edges of round(x_l[src] * alpha *
+//   5. conv[n] = sum over incoming edges of round(x_l[src] * alpha *
 //      egate) + bias, rounded to the model dtype: the aggregation reads
 //      x_l, not x_r (gat_kernel.py:177-185).
 // Bound: bytes at these shapes (x_l, x_r, eproj read once per edge, conv
@@ -61,23 +66,23 @@ __global__ void gat_edge_kernel(const TX* __restrict__ xl,
                                 const float* __restrict__ att,
                                 const float* __restrict__ cbias,
                                 float* __restrict__ alpha,
-                                TC* __restrict__ conv, int N, int E, int H,
-                                int C) {
+                                TC* __restrict__ conv, int N, int E, int C) {
   extern __shared__ float sm[];
-  float* lg = sm;                       // [E, H] logits
-  float* wg = lg + E * H;               // [E, H] alpha * egate
-  float* eg = wg + E * H;               // [E]    edge gate
-  float* mx = eg + E;                   // [N, H]
-  float* den = mx + N * H;              // [N, H]
-  int* dS = reinterpret_cast<int*>(den + N * H);   // [E] dst or -1
+  float* lg = sm;                       // [E] logits
+  float* wg = lg + E;                   // [E] alpha * egate
+  float* eg = wg + E;                   // [E] edge gate
+  float* mx = eg + E;                   // [N]
+  float* den = mx + N;                  // [N]
+  int* dS = reinterpret_cast<int*>(den + N);   // [E] dst or -1
   int* sS = dS + E;                     // [E] src
   int* lst = sS + E;                    // [E] edges grouped by dst
-  int* cnt = lst + E;                   // [N]
-  int* off = cnt + N;                   // [N + 1]
+  int* cur = lst + E;                   // [N] scratch of the sort
+  int* off = cur + N;                   // [N + 1]
 
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid / 32, lane = tid % 32, nw = nt / 32;
-  const int HC = H * C;
+  const int HC = H * C, h0 = h * C;
   const long nb = (long)b * N, eb = (long)b * E;
 
   for (int e = tid; e < E; e += nt) {
@@ -91,83 +96,67 @@ __global__ void gat_edge_kernel(const TX* __restrict__ xl,
     eg[e] = valid ? gate[nb + s] * gate[nb + d] : 0.f;
   }
   __syncthreads();
+  group_edges(E, N, [&](int e) { return dS[e]; }, off, cur, lst);
 
+  const float* at = att + h0;
   for (int e = warp; e < E; e += nw) {
     const int d = dS[e];
     if (d < 0) {
-      for (int hh = lane; hh < H; hh += 32) lg[e * H + hh] = kNeg;
+      if (lane == 0) lg[e] = kNeg;
       continue;
     }
     const float g = eg[e];
-    const TX* xs = xl + (nb + sS[e]) * HC;
-    const TX* xd = xr + (nb + d) * HC;
-    const TE* pe = ep + (eb + e) * HC;
-    for (int hh = 0; hh < H; ++hh) {
-      float acc = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const int j = hh * C + c;
-        float m = (to_f(xs[j]) + to_f(xd[j])) + to_f(pe[j]);
-        m *= g;
-        m = m >= 0.f ? m : m * kSlope;
-        m *= g;
-        acc = fmaf(m, att[j], acc);
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) lg[e * H + hh] = acc;
+    const TX* xs = xl + (nb + sS[e]) * HC + h0;
+    const TX* xd = xr + (nb + d) * HC + h0;
+    const TE* pe = ep + (eb + e) * HC + h0;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int c = lane; c < C; c += 32) {
+      float m = (to_f(xs[c]) + to_f(xd[c])) + to_f(pe[c]);
+      m *= g;
+      m = m >= 0.f ? m : m * kSlope;
+      m *= g;
+      acc = fmaf(m, at[c], acc);
     }
+    acc = warp_sum(acc);
+    if (lane == 0) lg[e] = acc;
   }
   __syncthreads();
 
-  for (int i = tid; i < N * H; i += nt) {
-    const int n = i / H, hh = i % H;
+  for (int n = tid; n < N; n += nt) {
     float m = kNeg;
-    int c = 0;
-    for (int e = 0; e < E; ++e)
-      if (dS[e] == n) {
-        m = fmaxf(m, lg[e * H + hh]);
-        ++c;
-      }
+    for (int q = off[n]; q < off[n + 1]; ++q) m = fmaxf(m, lg[lst[q]]);
     float s = 0.f;
-    for (int e = 0; e < E; ++e)
-      if (dS[e] == n) s += expf(lg[e * H + hh] - m);
-    mx[i] = m;
-    den[i] = s;
-    if (hh == 0) cnt[n] = c;
+    for (int q = off[n]; q < off[n + 1]; ++q) s += expf(lg[lst[q]] - m);
+    mx[n] = m;
+    den[n] = s;
   }
   __syncthreads();
 
-  for (int i = tid; i < E * H; i += nt) {
-    const int e = i / H, hh = i % H;
+  for (int e = tid; e < E; e += nt) {
     const int d = dS[e];
     float a = 0.f;
     if (d >= 0) {
-      const float s = den[d * H + hh];
-      a = expf(lg[i] - mx[d * H + hh]) / (s > 1e-12f ? s : 1.f);
+      const float s = den[d];
+      a = expf(lg[e] - mx[d]) / (s > 1e-12f ? s : 1.f);
     }
-    alpha[eb * H + i] = a;
-    wg[i] = a * eg[e];
-  }
-  if (tid == 0) {
-    off[0] = 0;
-    for (int n = 0; n < N; ++n) off[n + 1] = off[n] + cnt[n];
-  }
-  __syncthreads();
-  for (int n = tid; n < N; n += nt) {
-    int q = off[n];
-    for (int e = 0; e < E; ++e)
-      if (dS[e] == n) lst[q++] = e;
+    alpha[(eb + e) * H + h] = a;
+    wg[e] = a * eg[e];
   }
   __syncthreads();
 
-  for (int i = tid; i < N * HC; i += nt) {
-    const int n = i / HC, j = i % HC, hh = j / C;
-    float acc = 0.f;
-    for (int q = off[n]; q < off[n + 1]; ++q) {
-      const int e = lst[q];
-      const float w = to_f(xl[(nb + sS[e]) * HC + j]) * wg[e * H + hh];
-      acc += kRound ? round_to<TC>(w) : w;
+  // a thread per channel of the head, walking the nodes in order
+  for (int c = tid; c < C; c += nt) {
+    const int j = h0 + c;
+    for (int n = 0; n < N; ++n) {
+      float acc = 0.f;
+      for (int q = off[n]; q < off[n + 1]; ++q) {
+        const int e = lst[q];
+        const float w = to_f(xl[(nb + sS[e]) * HC + j]) * wg[e];
+        acc += kRound ? round_to<TC>(w) : w;
+      }
+      conv[(nb + n) * HC + j] = from_f<TC>(acc + cbias[j]);
     }
-    conv[(nb + n) * HC + j] = from_f<TC>(acc + cbias[j]);
   }
 }
 
@@ -175,9 +164,15 @@ __global__ void gat_edge_kernel(const TX* __restrict__ xl,
 
 using namespace isg;
 
-static size_t gat_edge_smem(int N, int E, int H) {
-  return sizeof(float) * ((size_t)2 * E * H + E + 2 * N * H) +
-         sizeof(int) * ((size_t)3 * E + 2 * N + 1);
+static size_t gat_edge_smem(int N, int E) {
+  return sizeof(float) * (3 * (size_t)E + 2 * (size_t)N) +
+         sizeof(int) * (3 * (size_t)E + 2 * (size_t)N + 1);
+}
+
+// a thread per channel of a head in the aggregation
+static int gat_edge_threads(int C) {
+  const int t = (C + 31) / 32 * 32;
+  return t < 128 ? 128 : t > 1024 ? 1024 : t;
 }
 
 ISG_API int isg_instr_gelu(const void* h, const void* instr, void* xf, int dt,
@@ -198,14 +193,15 @@ ISG_API int isg_gat_edge(const void* xl, const void* xr, const void* ep,
                          const int* dst, const float* emask, const float* att,
                          const float* cbias, float* alpha, void* conv, int B,
                          int N, int E, int H, int C, void* stream) {
-  const size_t smem = gat_edge_smem(N, E, H);
+  const size_t smem = gat_edge_smem(N, E);
+  dim3 grid(H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ISG_WITH_T(dt, T,
       allow_smem(gat_edge_kernel<T, T, T, true>, smem);
-      gat_edge_kernel<T, T, T, true><<<B, 512, smem, st>>>(
+      gat_edge_kernel<T, T, T, true><<<grid, gat_edge_threads(C), smem, st>>>(
           static_cast<const T*>(xl), static_cast<const T*>(xr),
           static_cast<const T*>(ep), gate, src, dst, emask, att, cbias, alpha,
-          static_cast<T*>(conv), N, E, H, C));
+          static_cast<T*>(conv), N, E, C));
   return (int)cudaGetLastError();
 }
 
@@ -218,12 +214,14 @@ ISG_API int isg_gat_edge_train(const float* xl, const float* xr,
                                const float* cbias, float* alpha, float* conv,
                                int B, int N, int E, int H, int C,
                                void* stream) {
-  const size_t smem = gat_edge_smem(N, E, H);
+  const size_t smem = gat_edge_smem(N, E);
+  dim3 grid(H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ISG_WITH_T(ep_dt, TE,
       allow_smem(gat_edge_kernel<float, TE, float, false>, smem);
-      gat_edge_kernel<float, TE, float, false><<<B, 512, smem, st>>>(
-          xl, xr, static_cast<const TE*>(ep), gate, src, dst, emask, att,
-          cbias, alpha, conv, N, E, H, C));
+      gat_edge_kernel<float, TE, float, false>
+          <<<grid, gat_edge_threads(C), smem, st>>>(
+              xl, xr, static_cast<const TE*>(ep), gate, src, dst, emask, att,
+              cbias, alpha, conv, N, E, C));
   return (int)cudaGetLastError();
 }

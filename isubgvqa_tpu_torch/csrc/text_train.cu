@@ -1,6 +1,6 @@
 // Backward kernels of the question stack's training layers.
 //
-// With the shared GEMM's backward forms (gemm.cu: isg_gemm_any for dgrad
+// With the shared GEMM's backward forms (gemm_any.cu: isg_gemm_any for dgrad
 // and wgrad, isg_colsum for the bias gradients) they replace the backward
 // Pallas kernels of isubgvqa_tpu/ops/pallas/text_train.py
 // (_make_enc_bwd, _make_dec_bwd, called from _enc_call / _dec_call).
@@ -9,15 +9,24 @@
 // sums, the FFN activation) and these kernels walk the chain in reverse.
 //
 // isg_attention_bwd: one block per (question, head), like the forward.
-//   The block holds q, k, v, dO, the probabilities P and the score
+//   The block holds q, k, v, dO, the probabilities P, Pd = P * keep
+//   rounded to the model dtype (as the forward used it) and the score
 //   gradient in shared memory (L <= 64, head width <= 128) and computes
-//     dV  = Pd^T dO                  (Pd = P * keep rounded to the model
-//                                     dtype, as the forward used it)
+//     dV  = Pd^T dO
 //     dP~ = (dO V^T) * keep
 //     dS  = P * (dP~ - rowsum(dP~ * P))
 //     dQ  = scale * dS K,  dK = scale * dS^T Q
 //   The key bias is added to the logits and gets no gradient.  Bound:
-//   bytes (each operand read once per block; the products are tiny).
+//   bytes (each operand read once per block; about 1.3 GFLOP and 110 MB
+//   at B = 256, L = 32, 8 heads of 64, i.e. 0.03 ms of bytes), so the
+//   cost is in the block's own loads and products: the keep mask is
+//   staged once (into the score-gradient buffer, which dP~ then
+//   overwrites in place) rather than read from device memory Lq times
+//   per output, the rows of K and V that are read across lanes are
+//   padded to an odd pitch, and the products are register-tiled: a
+//   thread owns a 4 x 2 output tile whose columns are strided by the
+//   number of column tiles, so neighbouring lanes read neighbouring
+//   words and one row value is a broadcast.
 //
 // isg_ln_bwd: one warp per row, the backward of LN(z) with flax's fast
 //   variance clamped at 0 and eps 1e-6:
@@ -33,6 +42,50 @@
 
 namespace isg {
 
+// C[i, j] = sum_k A(i, k) B(k, j) over shared memory, with A(i, k) =
+// A[i * asi + k * ask] and B(k, j) = B[k * bsk + j * bsj]; out(i, j, v)
+// stores.  Each thread takes TI x TJ tiles: rows i0 .. i0 + TI - 1,
+// columns j0 + c * nj (nj column tiles), so the lanes of a warp read
+// consecutive columns.  Edge tiles read clamped indices and skip the
+// store.
+template <int TI, int TJ, typename Out>
+__device__ __forceinline__ void smem_mm(const float* A, int asi, int ask,
+                                        const float* B, int bsk, int bsj,
+                                        int I, int J, int K, Out out) {
+  const int nj = (J + TJ - 1) / TJ, ni = (I + TI - 1) / TI;
+  for (int w = threadIdx.x; w < ni * nj; w += blockDim.x) {
+    const int i0 = (w / nj) * TI, j0 = w % nj;
+    int ai[TI], bj[TJ];
+#pragma unroll
+    for (int a = 0; a < TI; ++a) ai[a] = min(i0 + a, I - 1) * asi;
+#pragma unroll
+    for (int c = 0; c < TJ; ++c) bj[c] = min(j0 + c * nj, J - 1) * bsj;
+    float acc[TI][TJ];
+#pragma unroll
+    for (int a = 0; a < TI; ++a)
+#pragma unroll
+      for (int c = 0; c < TJ; ++c) acc[a][c] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      float av[TI], bv[TJ];
+#pragma unroll
+      for (int a = 0; a < TI; ++a) av[a] = A[ai[a] + k * ask];
+#pragma unroll
+      for (int c = 0; c < TJ; ++c) bv[c] = B[k * bsk + bj[c]];
+#pragma unroll
+      for (int a = 0; a < TI; ++a)
+#pragma unroll
+        for (int c = 0; c < TJ; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+    }
+#pragma unroll
+    for (int a = 0; a < TI; ++a)
+#pragma unroll
+      for (int c = 0; c < TJ; ++c) {
+        const int i = i0 + a, j = j0 + c * nj;
+        if (i < I && j < J) out(i, j, acc[a][c]);
+      }
+  }
+}
+
 template <typename T>
 __global__ void attention_bwd_kernel(
     const T* __restrict__ q, int q_rs, const T* __restrict__ k, int k_rs,
@@ -41,50 +94,57 @@ __global__ void attention_bwd_kernel(
     float* __restrict__ dq, int dq_rs, float* __restrict__ dk, int dk_rs,
     float* __restrict__ dv, int dv_rs, int Lq, int Lk, int dh, float scale) {
   extern __shared__ float sm[];
+  const int dp = dh + 1;                 // odd pitch: column reads of K, V
   float* qs = sm;                        // [Lq, dh]
   float* dos = qs + Lq * dh;             // [Lq, dh]
   float* ks = dos + Lq * dh;             // [Lk, dh + 1]
-  float* vs = ks + Lk * (dh + 1);        // [Lk, dh + 1]
-  float* ps = vs + Lk * (dh + 1);        // [Lq, Lk] probabilities
-  float* ds = ps + Lq * Lk;              // [Lq, Lk] score gradient
+  float* vs = ks + Lk * dp;              // [Lk, dh + 1]
+  float* ps = vs + Lk * dp;              // [Lq, Lk] probabilities
+  float* pd = ps + Lq * Lk;              // [Lq, Lk] round(P * keep)
+  float* ds = pd + Lq * Lk;              // [Lq, Lk] keep, then the score grad
   const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int col = h * dh;
   const long prow = ((long)b * H + h) * Lq * Lk;
 
-  for (int i = tid; i < Lq * dh; i += nt) {
-    const int r = i / dh, d = i % dh;
-    qs[i] = to_f(q[(long)(b * Lq + r) * q_rs + col + d]);
-    dos[i] = dout[(long)(b * Lq + r) * do_rs + col + d];
-  }
-  for (int i = tid; i < Lk * dh; i += nt) {
-    const int r = i / dh, d = i % dh;
-    ks[r * (dh + 1) + d] = to_f(k[(long)(b * Lk + r) * k_rs + col + d]);
-    vs[r * (dh + 1) + d] = to_f(v[(long)(b * Lk + r) * v_rs + col + d]);
-  }
-  for (int i = tid; i < Lq * Lk; i += nt) ps[i] = probs[prow + i];
-  __syncthreads();
-
-  // dV and dP~ (both read P; neither writes what the other reads)
-  for (int i = tid; i < Lk * dh; i += nt) {
-    const int c = i / dh, d = i % dh;
-    float acc = 0.f;
-    for (int r = 0; r < Lq; ++r) {
-      const float kp = keep ? keep[prow + r * Lk + c] : 1.f;
-      acc = fmaf(round_to<T>(ps[r * Lk + c] * kp), dos[r * dh + d], acc);
+  // rows by warp, columns by lane: coalesced, and no index division
+  const int warp = tid / 32, lane = tid % 32, nw = nt / 32;
+  for (int r = warp; r < Lq; r += nw) {
+    const long qo = (long)(b * Lq + r) * q_rs + col;
+    const long oo = (long)(b * Lq + r) * do_rs + col;
+    for (int d = lane; d < dh; d += 32) {
+      qs[r * dh + d] = to_f(q[qo + d]);
+      dos[r * dh + d] = dout[oo + d];
     }
-    dv[(long)(b * Lk + c) * dv_rs + col + d] = acc;
+  }
+  for (int r = warp; r < Lk; r += nw) {
+    const long ko = (long)(b * Lk + r) * k_rs + col;
+    const long vo = (long)(b * Lk + r) * v_rs + col;
+    for (int d = lane; d < dh; d += 32) {
+      ks[r * dp + d] = to_f(k[ko + d]);
+      vs[r * dp + d] = to_f(v[vo + d]);
+    }
   }
   for (int i = tid; i < Lq * Lk; i += nt) {
-    const int r = i / Lk, c = i % Lk;
-    float acc = 0.f;
-    for (int d = 0; d < dh; ++d) acc = fmaf(dos[r * dh + d], vs[c * (dh + 1) + d], acc);
-    ds[i] = keep ? acc * keep[prow + i] : acc;
+    const float p = probs[prow + i];
+    const float kp = keep ? keep[prow + i] : 1.f;
+    ps[i] = p;
+    pd[i] = round_to<T>(p * kp);
+    ds[i] = kp;
   }
+  __syncthreads();
+
+  // dV = Pd^T dO and dP~ = (dO V^T) * keep: neither writes what the other
+  // reads (dP~ overwrites each keep value with its own output)
+  smem_mm<4, 2>(pd, 1, Lk, dos, dh, 1, Lk, dh, Lq,
+                [&](int c, int d, float acc) {
+                  dv[(long)(b * Lk + c) * dv_rs + col + d] = acc;
+                });
+  smem_mm<4, 2>(dos, dh, 1, vs, 1, dp, Lq, Lk, dh,
+                [&](int r, int c, float acc) { ds[r * Lk + c] *= acc; });
   __syncthreads();
 
   // softmax backward, one warp per row
-  const int warp = tid / 32, lane = tid % 32, nw = nt / 32;
   for (int r = warp; r < Lq; r += nw) {
     float t = 0.f;
     for (int c = lane; c < Lk; c += 32) t += ds[r * Lk + c] * ps[r * Lk + c];
@@ -94,18 +154,14 @@ __global__ void attention_bwd_kernel(
   }
   __syncthreads();
 
-  for (int i = tid; i < Lq * dh; i += nt) {
-    const int r = i / dh, d = i % dh;
-    float acc = 0.f;
-    for (int c = 0; c < Lk; ++c) acc = fmaf(ds[r * Lk + c], ks[c * (dh + 1) + d], acc);
-    dq[(long)(b * Lq + r) * dq_rs + col + d] = acc * scale;
-  }
-  for (int i = tid; i < Lk * dh; i += nt) {
-    const int c = i / dh, d = i % dh;
-    float acc = 0.f;
-    for (int r = 0; r < Lq; ++r) acc = fmaf(ds[r * Lk + c], qs[r * dh + d], acc);
-    dk[(long)(b * Lk + c) * dk_rs + col + d] = acc * scale;
-  }
+  smem_mm<4, 2>(ds, Lk, 1, ks, dp, 1, Lq, dh, Lk,
+                [&](int r, int d, float acc) {
+                  dq[(long)(b * Lq + r) * dq_rs + col + d] = acc * scale;
+                });
+  smem_mm<4, 2>(ds, 1, Lk, qs, dh, 1, Lk, dh, Lq,
+                [&](int c, int d, float acc) {
+                  dk[(long)(b * Lk + c) * dk_rs + col + d] = acc * scale;
+                });
 }
 
 constexpr int kLnRows = 8;               // warps (rows in flight) per block
@@ -216,7 +272,7 @@ ISG_API int isg_attention_bwd(const void* q, int q_rs, const void* k,
                               float scale, int dt, void* stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)Lq * dh + 2 * (size_t)Lk * (dh + 1) +
-                       2 * (size_t)Lq * Lk);
+                       3 * (size_t)Lq * Lk);
   dim3 grid(H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ISG_WITH_T(dt, T,

@@ -37,8 +37,8 @@ build_log: str = ""                       # nvcc output of the last build
 P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 _SIGNATURES = {
     "isg_gemm": [P, P, I, I] * 3 + [I, P, I, P, P, P, P, P, I, I, I, I, I,
-                                    I, I, P],
-    "isg_gemm_any": [P, I, I, P, P, I, I, P, I, I, I, I, I, P, I, P],
+                                    I, I, I, P],
+    "isg_gemm_any": [P, I, I, P, P, I, I, P, I, I, I, I, I, P, P, I, P],
     "isg_reduce_rows": [P, P, I, I, I, I, I, P],
     "isg_colsum": [P, I, I, I, P, I, P, I, P],
     "isg_attention": [P, I, P, I, P, I, P, P, P, P, I, I, I, I, I, I, F, I,
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "isg_gat_edge": [P, P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "isg_gat_edge_train": [P, P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
                            P],
-    "isg_gat_edge_bwd": [P, P, P, I] + [P] * 13 + [I] * 5 + [P],
+    "isg_gat_edge_bwd": [P, P, P, I] + [P] * 13 + [I] * 6 + [P],
 }
 
 
@@ -143,7 +143,10 @@ def lib() -> ctypes.CDLL:
 
 def call(name: str, *args) -> None:
     """Launch ``name`` on the current stream; raise on a CUDA error."""
-    err = getattr(lib(), name)(*args, torch.cuda.current_stream().cuda_stream)
+    # the current stream's raw handle: torch.cuda.current_stream() builds
+    # a Stream object first, several microseconds of host time a launch
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    err = getattr(lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed with CUDA error {err}")
 

@@ -17,10 +17,12 @@ custom VJP over ``_gatconv_pallas_fwd`` / ``_fwd_kernel`` and
   ``x_r`` and the projected edges are saved for the backward (the TPU
   recomputes them; see ``csrc/gat_train.cu``);
 * backward — ``csrc/gat_train.cu:isg_gat_edge_bwd`` (one block per
-  graph: the softmax, leaky-ReLU and gate backward, ``d x_l``, ``d x_r``,
-  ``d eproj``, the dst-only ``d gate`` and per-graph ``d att``), then the
-  shared GEMM's dgrad / wgrad forms for ``d xf``, ``d e_attr`` and the
-  lin_l / lin_r / lin_edge weights, and column sums for the biases.
+  graph and head: the softmax, leaky-ReLU and gate backward, ``d x_l``,
+  ``d x_r``, ``d eproj``, per-head shares of the dst-only ``d gate``,
+  summed in head order, and per-graph ``d att``), then the shared GEMM's
+  dgrad / wgrad forms (3xTF32 on the tensor cores) for ``d xf``,
+  ``d e_attr`` and the lin_l / lin_r / lin_edge weights, and column sums
+  for the biases.
 
 The node-gate -> edge-gate step keeps the reference's backward quirk
 (``sampling/node_edge_masks.py:13-19``): the edge gate's cotangent is
@@ -30,8 +32,10 @@ dense_node_gate_to_edge_gate` for the same reason.
 
 Bound on the H100: the x_l / x_r / lin_edge products and their backward
 (about 3 x 2 x C x H*C FLOPs per node and per edge) make the conv
-operation-bound; the f32 products (x_l / x_r are f32 by design, and the
-backward products run on f32 FMA tiles) set its time today.
+operation-bound.  x_l / x_r and every backward product are f32 by
+design; they run in the 3xTF32 form on the TF32 tensor cores
+(``csrc/gemm.cu``, ``csrc/gemm_any.cu``), whose ceiling for f32-accurate
+products is a third of the 495 TFLOP/s TF32 peak.
 
 :func:`fused_gat_layer_train` composes the conv with the node-space head
 (:func:`gat_head_plain`, the port of ``gat_kernel.gat_head_reference``),
@@ -46,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _lib
-from .gemm import colsum, dgrad, gemm, reduce_rows, ste, wgrad
+from .gemm import colsum, dgrad, gemm, plain_product, reduce_rows, ste, wgrad
 from .metalayer_kernel import GN_EPS, NEG, gather_rows
 from ..sampling.node_edge import dense_node_gate_to_edge_gate
 
@@ -66,9 +70,10 @@ def fused_gatconv_plain(xf, gate, src, dst, edge_mask, e_attr, params):
     heads, c = p["att"].shape[-2:]
     att = p["att"].float().reshape(-1)
     x = ste(xf, dtype)
-    x_l = x @ p["wl"].float().t() + p["bl"].float()
-    x_r = x @ p["wr"].float().t() + p["br"].float()
-    eproj = ste(ste(e_attr, dtype) @ ste(p["we"], dtype).t(), dtype)
+    x_l = plain_product(x, p["wl"].float().t()) + p["bl"].float()
+    x_r = plain_product(x, p["wr"].float().t()) + p["br"].float()
+    eproj = ste(plain_product(ste(e_attr, dtype), ste(p["we"], dtype).t()),
+                dtype)
     em = edge_mask.float()[..., None]
     egate = dense_node_gate_to_edge_gate(ste(gate, dtype).reshape(b, n),
                                          src, dst, edge_mask)[..., None]
@@ -106,11 +111,15 @@ class _GatConv(torch.autograd.Function):
                              f"(got N={n}, E={e})")
         wl = p["wl"].detach().float().contiguous()
         wr = p["wr"].detach().float().contiguous()
+        wlr = torch.cat([wl, wr])             # d x_l, d x_r share one dgrad
         we = p["we"].detach().to(dtype).contiguous()
-        xt = xf.reshape(b * n, ci).float().contiguous()
+        # xf at its own dtype: a bf16 operand is exact in TF32, so the f32
+        # products (x_l / x_r, their weight gradients) take two tensor-core
+        # products, not three, with the same result
+        xw = xf.reshape(b * n, ci).contiguous()
         et = e_attr.to(dtype).reshape(b * e, -1).contiguous()
-        x_l = gemm([(xt, None)], wl, p["bl"].detach().float().contiguous())
-        x_r = gemm([(xt, None)], wr, p["br"].detach().float().contiguous())
+        x_l = gemm([(xw, None)], wl, p["bl"].detach().float().contiguous())
+        x_r = gemm([(xw, None)], wr, p["br"].detach().float().contiguous())
         eproj = gemm([(et, None)], we, None, out_dtype=dtype)
         g = gate.reshape(b, n).to(dtype).float().contiguous()
         em = edge_mask.to(torch.float32).contiguous()
@@ -126,9 +135,9 @@ class _GatConv(torch.autograd.Function):
                   src32.data_ptr(), dst32.data_ptr(), em.data_ptr(),
                   att.data_ptr(), cbias.data_ptr(), alpha.data_ptr(),
                   conv.data_ptr(), b, n, e, heads, c)
-        ctx.saved = dict(xt=xt, et=et, x_l=x_l, x_r=x_r, eproj=eproj, g=g,
+        ctx.saved = dict(xw=xw, et=et, x_l=x_l, x_r=x_r, eproj=eproj, g=g,
                          em=em, src32=src32, dst32=dst32, att=att, alpha=alpha,
-                         wl=wl, wr=wr, we=we)
+                         wlr=wlr, we=we)
         ctx.shape = (b, n, e, heads, c, ci)
         ctx.dtypes = (xf.dtype, gate.dtype, e_attr.dtype)
         ctx.param_dtypes = [t.dtype for t in params]
@@ -142,16 +151,15 @@ class _GatConv(torch.autograd.Function):
         s = ctx.saved
         b, n, e, heads, c, ci = ctx.shape
         hc = heads * c
-        dev = s["xt"].device
+        dev = s["xw"].device
         f32 = dict(dtype=torch.float32, device=dev)
         dconv = (torch.zeros((b * n, hc), **f32) if dconv is None
                  else dconv.reshape(b * n, hc).float().contiguous())
         dalpha = (None if dalpha is None
                   else dalpha.float().contiguous())
-        dxl = torch.empty((b * n, hc), **f32)
-        dxr = torch.empty((b * n, hc), **f32)
+        dx = torch.empty((b * n, 2 * hc), **f32)      # [d x_l | d x_r]
         dep = torch.empty((b * e, hc), **f32)
-        dgate = torch.empty((b, n), **f32)
+        dgate = torch.empty((heads, b, n), **f32)     # per-head shares
         datt = torch.empty((b, hc), **f32)
         _lib.check_cuda(dalpha)
         _lib.call("isg_gat_edge_bwd", s["x_l"].data_ptr(), s["x_r"].data_ptr(),
@@ -159,14 +167,15 @@ class _GatConv(torch.autograd.Function):
                   s["src32"].data_ptr(), s["dst32"].data_ptr(),
                   s["em"].data_ptr(), s["att"].data_ptr(),
                   s["alpha"].data_ptr(), dconv.data_ptr(), _lib.ptr(dalpha),
-                  dxl.data_ptr(), dxr.data_ptr(), dep.data_ptr(),
-                  dgate.data_ptr(), datt.data_ptr(), b, n, e, heads, c)
+                  dx.data_ptr(), dx.data_ptr() + hc * dx.element_size(),
+                  dep.data_ptr(), dgate.data_ptr(), datt.data_ptr(), 2 * hc,
+                  b, n, e, heads, c)
+        dgate = reduce_rows(dgate)                     # in head order
+        dwlr, dblr = wgrad(dx, s["xw"]), colsum(dx)
         g = {"cbias": colsum(dconv), "att": reduce_rows(datt),
-             "wl": wgrad(dxl, s["xt"]), "bl": colsum(dxl),
-             "wr": wgrad(dxr, s["xt"]), "br": colsum(dxr),
-             "we": wgrad(dep, s["et"])}
-        dxf = dgrad(dxl, s["wl"])
-        dgrad(dxr, s["wr"], out=dxf, accumulate=True)
+             "wl": dwlr[:hc], "bl": dblr[:hc], "wr": dwlr[hc:],
+             "br": dblr[hc:], "we": wgrad(dep, s["et"])}
+        dxf = dgrad(dx, s["wlr"])
         de = dgrad(dep, s["we"])
         g["att"] = g["att"].reshape(ctx.att_shape)
         fused_gatconv.bwd_launches += 1

@@ -1,4 +1,5 @@
-"""Python side of the shared GEMM (``csrc/gemm.cu``) and its plain twin.
+"""Python side of the shared GEMM (``csrc/gemm.cu``, backward forms in
+``csrc/gemm_any.cu``) and its plain twin.
 
 :func:`gemm` launches the hand-written forward kernel and
 :func:`gemm_any` / :func:`dgrad` / :func:`wgrad` / :func:`colsum` its
@@ -9,6 +10,15 @@ rounded to the model dtype, the product and the bias are taken in f32
 (flax ``Dense(dtype=...)`` with f32 accumulation, as inside the Pallas
 kernels).  Rounding goes through :func:`ste`, whose gradient passes
 unrounded, as the Pallas backward kernels take their gradients in f32.
+
+The kernels take their f32 products in the 3xTF32 form on the tensor
+cores (``csrc/tensor_core.cuh``); :func:`split_tf32` and :func:`tf32x3_mm` are
+that arithmetic in plain PyTorch.  The plain versions' products go
+through :func:`plain_product`, whose backward (the dgrad and wgrad
+products) calls :data:`backward_product`: a plain f32 matmul by
+default, so the plain versions stay the f32 oracle, or
+:func:`tf32x3_mm` when a test routes them through the kernels'
+arithmetic.
 """
 
 from __future__ import annotations
@@ -44,15 +54,20 @@ def gemm(segments: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
     ``segments``: up to three ``(A [R, K_s], idx [M] int32 | None)``;
     ``idx`` gathers row ``idx[m]`` of ``A`` (a zero row where it is
     negative).  ``weight`` is a torch Linear weight ``[N, sum K_s]``.
-    Returns ``[M, N]`` at ``out_dtype``.  A bf16 weight runs on the
-    tensor cores and needs every ``K_s`` and row pitch to be a multiple
-    of 4 elements (the kernel returns an error otherwise).
+    Returns ``[M, N]`` at ``out_dtype``.  Both weight types run on the
+    tensor cores (bf16 directly, f32 in the 3xTF32 form) and need every
+    ``K_s`` and row pitch to be a multiple of 4 elements (the kernel
+    returns an error otherwise).  bf16 operands against an f32 weight
+    are exact in TF32, and the f32 path then drops their lo products.
     """
     assert 1 <= len(segments) <= 3
     n, ktot = weight.shape
     m = None
     args = []
-    # the operand is rounded to the weight's dtype (a no-op on the path)
+    a_exact = weight.dtype == torch.float32 and all(
+        a.dtype == torch.bfloat16 for a, _ in segments)
+    # the operand is rounded to the weight's dtype (exact for a bf16
+    # operand and an f32 weight, a no-op on the rest of the path)
     segments = [(a.to(weight.dtype), idx) for a, idx in segments]
     for a, idx in segments:
         if m is None:
@@ -76,22 +91,90 @@ def gemm(segments: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
               _lib.ptr(bias), _lib.ptr(row_scale), _lib.ptr(emul),
               _lib.ptr(pre), out.data_ptr(), n, m, n,
               ACT[act], _lib.dt(segments[0][0]), _lib.dt(weight),
-              _lib.dt(out))
+              _lib.dt(out), int(a_exact))
     return out
 
 
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``x ~= hi + lo``: ``hi`` is ``x`` rounded to TF32
+    (a 10-bit mantissa, to nearest, ties away from zero: PTX
+    ``cvt.rna.tf32.f32``) and ``lo`` the same rounding of ``x - hi``,
+    both f32 tensors."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    xf = x.float()
+    hi = rna(xf)
+    return hi, rna(xf - hi)
+
+
+def tf32x3_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernels' 3xTF32 form takes it: ``a_lo b_hi +
+    a_hi b_lo + a_hi b_hi``, each product of TF32 values exact in f32,
+    summed in f32."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+# The dgrad / wgrad products of :func:`plain_product`'s backward.
+backward_product = torch.matmul
+
+
+class _Product(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        mm = backward_product
+        da = mm(g, b.t()) if ctx.needs_input_grad[0] else None
+        db = (mm(a.reshape(-1, a.shape[-1]).t(), g.reshape(-1, g.shape[-1]))
+              if ctx.needs_input_grad[1] else None)
+        return da, db
+
+
+def plain_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [..., K] @ b [K, N]`` in f32, differentiable; its input and
+    weight gradients are taken by :data:`backward_product`, the plain
+    counterpart of the kernels' dgrad and wgrad."""
+    return _Product.apply(a, b)
+
+
+_MAX_SPLIT_TILES = 264     # two blocks on each of the card's 132 SMs
+
+
 def _split_k(tiles: int, k: int) -> int:
-    """Slices of the reduction dimension: enough blocks to fill the
-    card's 132 SMs about twice, at least 256 rows a slice."""
-    want = max(1, -(-264 // max(tiles, 1)))
+    """Slices of the reduction dimension: as many blocks as the card's 132
+    SMs hold at once (two each), not more (a second, mostly idle wave
+    would cost as much as the first), at least 256 rows a slice."""
+    want = max(1, _MAX_SPLIT_TILES // max(tiles, 1))
     return max(1, min(want, k // 256, 64))
+
+
+_COUNTERS = {}
+
+
+def _tile_counters(device: torch.device) -> torch.Tensor:
+    """Per-tile arrival counters of the split-K epilogue, zeroed once per
+    device; each call's last block resets the counters it used, so they
+    stay zeroed between the calls on a stream."""
+    t = _COUNTERS.get(device)
+    if t is None:
+        t = _COUNTERS[device] = torch.zeros(_MAX_SPLIT_TILES,
+                                            dtype=torch.int32, device=device)
+    return t
 
 
 def gemm_any(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int, *,
              a_trans: bool = False, b_idx: Optional[torch.Tensor] = None,
              out: Optional[torch.Tensor] = None, accumulate: bool = False
              ) -> torch.Tensor:
-    """``out (+)= A @ B`` in f32 (``csrc/gemm.cu:isg_gemm_any``).  ``a``
+    """``out (+)= A @ B`` at f32-level accuracy (3xTF32 on the tensor
+    cores, ``csrc/gemm_any.cu:isg_gemm_any``).  ``a``
     is f32 ``[m, k]`` (``[k, m]`` read transposed with ``a_trans``), ``b``
     f32 or bf16 ``[k, n]`` whose stored rows ``b_idx`` gathers (a zero row
     where the index is negative); both row-major 2-D views whose row pitch
@@ -108,13 +191,18 @@ def gemm_any(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int, *,
     if out.dtype != torch.float32 or out.stride(-1) != 1 \
             or tuple(out.shape) != (m, n):
         raise ValueError("gemm_any writes an f32 [m, n] row-major view")
-    splits = _split_k(-(-m // 128) * -(-n // 128), k)
-    work = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-            if splits > 1 else None)
+    tiles = -(-m // 128) * -(-n // 128)
+    splits = _split_k(tiles, k)
+    work = counters = None
+    if splits > 1:
+        assert tiles <= _MAX_SPLIT_TILES
+        work = torch.empty((splits, m, n), dtype=torch.float32,
+                           device=a.device)
+        counters = _tile_counters(a.device)
     _lib.call("isg_gemm_any", a.data_ptr(), a.stride(0), int(a_trans),
               b.data_ptr(), _lib.ptr(b_idx), b.stride(0), _lib.dt(b),
               out.data_ptr(), out.stride(0), m, n, k, int(accumulate),
-              _lib.ptr(work), splits)
+              _lib.ptr(work), _lib.ptr(counters), splits)
     return out
 
 
@@ -134,7 +222,7 @@ def wgrad(dy: torch.Tensor, x: torch.Tensor,
           accumulate: bool = False) -> torch.Tensor:
     """``dy[M, N]^T @ x[idx]`` -> ``[N, K]`` (the weight gradient of
     ``x[idx] @ W^T``); the M rows are split across blocks (split-K) and
-    the partial tiles summed in a second pass."""
+    the partial tiles summed in order by each tile's last block."""
     m, n = dy.shape
     k = x.shape[1]
     return gemm_any(dy, x, n, k, m, a_trans=True, b_idx=idx, out=out,
@@ -173,7 +261,7 @@ def linear_plain(x: torch.Tensor, weight: torch.Tensor,
     """f32 result of ``x @ weight.T + bias`` with ``x`` and ``weight``
     rounded to ``dtype`` (the weight's own dtype by default) first."""
     dt = dtype or weight.dtype
-    y = ste(x, dt) @ ste(weight, dt).t()
+    y = plain_product(ste(x, dt), ste(weight, dt).t())
     if bias is not None:
         y = y + bias.float()
     if act == "gelu":

@@ -17,15 +17,16 @@ Each is a :class:`torch.autograd.Function`:
   largest saved tensor of a layer at B = 256 questions, L = 32 is the
   FFN activation (16 MB in bf16), so saving is cheap;
 * backward — hand-written launches only: ``isg_ln_bwd`` (one warp per
-  row), the shared GEMM's dgrad and wgrad forms (split-K with an ordered
-  second pass), ``isg_colsum`` for the biases, ``isg_relu_bwd`` and
-  ``isg_attention_bwd`` (one block per question and head).  Gradients
-  are f32 throughout, as in the Pallas backward.
+  row), the shared GEMM's dgrad and wgrad forms (split-K, the slices
+  summed in order by each tile's last block), ``isg_colsum`` for the
+  biases, ``isg_relu_bwd`` and ``isg_attention_bwd`` (one block per
+  question and head).  Gradients are f32 throughout, as in the Pallas
+  backward.
 
 Bound on the H100: the products (about 3 x 2 x 12 D^2 FLOPs per token
 for forward and backward) make the layer operation-bound; the backward's
-products run on f32 FMA tiles (``csrc/gemm.cu:gemm_any_kernel``), so
-they, not bytes, set its time today.
+products are f32 by design and run in the 3xTF32 form on the TF32
+tensor cores (``csrc/gemm_any.cu``), so they, not bytes, set its time.
 
 The plain version is the eval plain (:func:`.text_kernel.
 fused_encoder_layer_plain`) with the masks, differentiated by autograd;

@@ -232,3 +232,217 @@ def test_cuda_train_kernels_match_autograd_of_plain(card, dtype):
         (torch.randn(b, t, D, device=DEVICE),))
     check_train(res, dtype, ["tgt", "memory"])
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ 3xTF32 GEMM
+#
+# The backward GEMM against its plain 3xTF32 emulation (the same split
+# and products; only the order of the f32 sums differs) and against the
+# f32 product with TF32 off, both to 2e-5 of the result's max abs: a
+# single TF32 pass is ~3e-4 off at these K (tests/test_torch_port_tf32x3.py).
+
+GEMM_TOL = 2e-5
+GEMM_CASES = {
+    # name: (m, n, k, a_trans, gathered, bf16 B, accumulate into a slice)
+    "ragged_300x1200x300": (300, 1200, 300, False, False, False, False),
+    "tiny_1x7x5": (1, 7, 5, False, False, False, False),
+    "a_trans_split_k": (300, 300, 8192, True, False, False, False),
+    "gathered_rows": (300, 200, 1500, True, True, False, False),
+    "bf16_b": (300, 1200, 300, False, False, True, False),
+    "bf16_b_gathered_split_k": (64, 300, 4000, True, True, True, False),
+    "accumulate_column_slice": (200, 96, 700, False, False, False, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GEMM_CASES))
+def test_gemm_any_matches_tf32x3_emulation_and_f32(card, case):
+    from isubgvqa_tpu_torch.ops import gemm
+
+    m, n, k, a_trans, gathered, bf16, acc = GEMM_CASES[case]
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    a = torch.randn((k, m) if a_trans else (m, k), device=DEVICE, generator=g)
+    rows = k + 17 if gathered else k
+    b = torch.randn(rows, n, device=DEVICE, generator=g)
+    if bf16:
+        b = b.to(torch.bfloat16)
+    idx = None
+    if gathered:
+        idx = torch.randint(-1, rows, (k,), device=DEVICE, generator=g,
+                            dtype=torch.int32)
+        idx[:5] = -1                            # zero rows
+    base = torch.randn(m, n + 40, device=DEVICE, generator=g)
+
+    def run():
+        out = base.clone()
+        view = out[:, 20:20 + n] if acc else None
+        res = gemm.gemm_any(a, b, m, n, k, a_trans=a_trans, b_idx=idx,
+                            out=view, accumulate=acc)
+        return out if acc else res
+
+    got = run()
+    torch.cuda.synchronize()
+    a_mat = a.t() if a_trans else a
+    b_mat = b.float()
+    if idx is not None:
+        b_mat = torch.where((idx >= 0)[:, None], b_mat[idx.clamp(min=0).long()],
+                            torch.zeros_like(b_mat[:1]))
+    for want_prod in (gemm.tf32x3_mm(a_mat, b_mat), a_mat @ b_mat):
+        want = want_prod
+        if acc:
+            want = base.clone()
+            want[:, 20:20 + n] += want_prod
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        assert err <= GEMM_TOL * scale, (case, err, scale)
+    assert torch.equal(run(), got)              # deterministic, bit for bit
+    assert int(gemm._tile_counters(torch.device(DEVICE)).abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_gemm_f32_weight_runs_3xtf32(card):
+    """The forward GEMM's f32 path (3xTF32): gathered rows with zero rows,
+    two segments, bias and GELU, against the f32 product."""
+    from isubgvqa_tpu_torch.ops import gemm
+
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    x = torch.randn(300, 300, device=DEVICE, generator=g)
+    e = torch.randn(500, 300, device=DEVICE, generator=g)
+    idx = torch.randint(-1, 300, (500,), device=DEVICE, generator=g,
+                        dtype=torch.int32)
+    w = 0.05 * torch.randn(1200, 600, device=DEVICE, generator=g)
+    bias = torch.randn(1200, device=DEVICE, generator=g)
+    got = gemm.gemm([(x, idx), (e, None)], w, bias, act="gelu")
+    xg = torch.where((idx >= 0)[:, None], x[idx.clamp(min=0).long()],
+                     torch.zeros_like(x[:1]))
+    want = torch.nn.functional.gelu(torch.cat([xg, e], 1) @ w.t() + bias)
+    err = (got - want).abs().max().item()
+    assert err <= GEMM_TOL * max(1.0, want.abs().max().item()), err
+    assert torch.equal(gemm.gemm([(x, idx), (e, None)], w, bias, act="gelu"),
+                       got)
+
+
+# ------------------------------------------------------------ GAT edge bwd
+
+def _gat_graphs(b, n, e, rng):
+    """Graph 0: no edges; graph 1: node n - 1 valid but never a
+    destination; the rest random with padding edges."""
+    nm = np.zeros((b, n), bool)
+    em = np.zeros((b, e), bool)
+    src = np.zeros((b, e), np.int32)
+    dst = np.zeros((b, e), np.int32)
+    for g in range(b):
+        nm[g] = True
+        ne = 0 if g == 0 else int(rng.integers(e // 2, e + 1))
+        em[g, :ne] = True
+        src[g, :ne] = rng.integers(0, n, ne)
+        dst[g, :ne] = rng.integers(0, n - 1 if g == 1 else n, ne)
+    return [torch.from_numpy(x).to(DEVICE) for x in (nm, em, src, dst)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e", [(16, 48), (256, 1024)],
+                         ids=["small", "N256_E1024"])
+def test_gat_edge_bwd_cases(card, n, e):
+    """``isg_gat_edge_bwd`` through the conv's autograd Function against
+    autograd of the plain version (f32): a zero-edge graph, a node with no
+    incoming edge, the largest graph the kernel takes, the dst-only gate
+    (a node that is only ever a source gets no gate gradient), and the
+    same gradients bit for bit on a second run.  At N = 256, E = 1024 a
+    shifted lin_l bias keeps every message away from the leaky-ReLU's kink:
+    among 2e5 random messages a few lie within f32 rounding of 0, where
+    kernel and plain version (whose x_l and x_r come from other products)
+    may take the other slope and move that edge's whole gradient row (seen:
+    2e-3 of d xf's max abs); the small case covers both slopes."""
+    torch.manual_seed(5)
+    rng = np.random.default_rng(15)
+    b = 3
+    nm, em, src, dst = _gat_graphs(b, n, e, rng)
+    h = randn(b, n, C, dtype=torch.float32)
+    ea = randn(b, e, C, dtype=torch.float32)
+    gate = torch.rand(b, n, 1, device=DEVICE) + 0.25
+    gp = MGAT(C, 1, HEADS, (1.0,)).layer_params(0)
+    conv = {k: gp[k] for k in gat_train.CONV_KEYS}
+    if n == 256:
+        conv["bl"] = conv["bl"] + 20.0
+    cp = masters(conv)
+    cot = (torch.randn(b, n, HEADS * C, device=DEVICE),
+           torch.randn(b, e, HEADS, device=DEVICE))
+    wrap = lambda f: (lambda xf, g, ea, p: f(xf, g, src, dst, em, ea, p))
+    res = run_both(wrap(gat_train.fused_gatconv),
+                   wrap(gat_train.fused_gatconv_plain), (h, gate, ea),
+                   (0, 1, 2), cp, cot)
+    check_train(res, torch.float32, ["xf", "gate", "e_attr"])
+    (_, ik, pk), _ = res
+    again = run_both(wrap(gat_train.fused_gatconv),
+                     wrap(gat_train.fused_gatconv_plain), (h, gate, ea),
+                     (0, 1, 2), cp, cot)[0]
+    assert all(torch.equal(x, y) for x, y in zip(ik, again[1]))
+    assert all(torch.equal(pk[key], again[2][key]) for key in pk)
+    dgate = ik[1]
+    assert torch.all(dgate[0] == 0)              # no edges, no gradient
+    assert torch.all(dgate[1, n - 1] == 0)       # never a destination
+    for g in range(1, b):
+        valid = em[g]
+        only_src = set(src[g][valid].tolist()) - set(dst[g][valid].tolist())
+        for node in only_src:
+            assert dgate[g, node, 0] == 0
+
+
+# ------------------------------------------------------------ attention bwd
+
+def _attention_core_plain(q, k, v, bias, keep, scale):
+    s = (q @ k.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    p = torch.softmax(s, -1)
+    return (p if keep is None else p * keep) @ v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk,keep_on", [(20, 20, True), (20, 20, False),
+                                           (4, 9, True), (37, 64, False)],
+                         ids=["L20_keep", "L20_nokeep", "cross_4x9_keep",
+                              "cross_37x64"])
+def test_attention_bwd_cases(card, lq, lk, keep_on):
+    """``isg_attention_bwd`` against autograd of the plain attention core
+    (f32): L not a multiple of 32, cross-attention with Lq != Lk, keep
+    masks on and off, and bit-equal on a second run."""
+    from isubgvqa_tpu_torch.ops.text_kernel import _attention
+
+    torch.manual_seed(6)
+    b, heads, dh = 3, TEXT_HEADS, D // TEXT_HEADS
+    q = torch.randn(b * lq, D, device=DEVICE)
+    kv = torch.randn(b * lk, 2 * D, device=DEVICE)
+    bias = None
+    if lq == lk:
+        bias = torch.zeros(b, lk, device=DEVICE)
+        bias[0, lk // 2:] = -1e9                  # padded keys
+    keep = ((torch.rand(b, heads, lq, lk, device=DEVICE) > 0.2).float() / 0.8
+            if keep_on else None)
+    dout = torch.randn(b * lq, D, device=DEVICE)
+    scale = 1.0 / np.sqrt(dh)
+
+    def kernel():
+        probs = torch.empty(b, heads, lq, lk, device=DEVICE)
+        _attention(q, 0, D, kv, 0, D, 2 * D, bias, b, lq, lk, D, heads, keep,
+                   probs)
+        dq = torch.empty(b * lq, D, device=DEVICE)
+        dkv = torch.empty(b * lk, 2 * D, device=DEVICE)
+        text_train.attention_bwd(q, 0, D, kv, 0, D, 2 * D, probs, keep, dout,
+                                 dq, 0, D, dkv, 0, D, 2 * D, b, lq, lk, D,
+                                 heads)
+        return dq, dkv[:, :D], dkv[:, D:]
+
+    got = kernel()
+    split = lambda t, l: t.view(b, l, heads, dh).transpose(1, 2)
+    qs = split(q, lq).clone().requires_grad_(True)
+    ks = split(kv[:, :D], lk).clone().requires_grad_(True)
+    vs = split(kv[:, D:], lk).clone().requires_grad_(True)
+    out = _attention_core_plain(qs, ks, vs, bias, keep, scale)
+    out.backward(split(dout, lq))
+    merge = lambda t: t.transpose(1, 2).reshape(-1, D)
+    for name, g, w in zip(("dq", "dk", "dv"), got,
+                          (merge(qs.grad), merge(ks.grad), merge(vs.grad))):
+        check_grads([g], [w], torch.float32, [name])
+    assert all(torch.equal(x, y) for x, y in zip(kernel(), got))
