@@ -13,8 +13,11 @@ script exits non-zero):
    version on the card, at the main path's shapes (every node bucket for
    the graph layers, L = 16 and 32 for the text layers), in f32 (TF32
    off) and bf16, with timings, the bound, the attention core against
-   ``F.scaled_dot_product_attention``, and device time by kernel at the
-   largest shapes;
+   ``F.scaled_dot_product_attention``, each text layer (bf16, no final
+   LayerNorm) against the one PyTorch call that computes it
+   (``nn.Transformer{Encoder,Decoder}Layer``, the MHA fast path off), and
+   device time by kernel at the largest shapes with the text layers'
+   products' effective TFLOP/s on the Hopper GEMM;
 4. serving: ``Predictor.predict`` at the full width of the config of
    record (gumbel, k = 3, masks (1, 1, 1, 0.15), bf16, seeded random
    weights) on 64 questions of the GQA-like synthetic mix, then the same
@@ -28,7 +31,8 @@ script exits non-zero):
    (N, E) = (16, 64) and (128, 384); B = 256 questions at L = 16 and 32),
    in f32 (TF32 off) and bf16, with fwd+bwd timings, the bound, the
    port's attention core forward+backward beside SDPA's on the same q,
-   k, v, bias and cotangent (the core's library yardstick), and device
+   k, v, bias and cotangent, the text layers' fwd+bwd beside the
+   ``nn.Transformer{Encoder,Decoder}Layer`` call's (bf16), and device
    time by kernel at the largest shapes with the backward GEMM's
    effective TFLOP/s, and the backward GEMM against an f64 product at the
    main path's longest reduction;
@@ -227,7 +231,8 @@ def phase_kernels(model, device):
     rng = np.random.default_rng(0)
     entries = {}
 
-    def record(key, info, dtype, fn, plain, flops, inputs, outputs):
+    def record(key, info, dtype, fn, plain, flops, inputs, outputs,
+               gemm_flops=None):
         got, want = fn(), plain()
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         err, rel = compare(f"{key} {info}", got, want, tol)
@@ -236,18 +241,39 @@ def phase_kernels(model, device):
         log(f"[3 kernels] {key} {info} {str(dtype)[6:]}: max abs {err:.3g} "
             f"(rel {rel:.3g}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
+        out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   shape=info)
         if dtype == torch.bfloat16 and info.endswith(("E=384", "L=32")):
             _, fam = device_profile(fn)
+            out["device_ms"] = sum(fam.values())
             log(f"[3 kernels] {key} {info} bfloat16 device time by kernel: "
                 f"{by_kernel(fam) or 'not measured (no CUDA events)'}")
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    shape=info)
+            if gemm_flops and fam.get("gemm_sm90"):
+                out["gemm_tflops"] = gemm_flops / fam["gemm_sm90"] / 1e9
+                log(f"[3 kernels] {key} {info} products on the Hopper GEMM: "
+                    f"{gemm_flops:.4g} FLOP in {fam['gemm_sm90']:.4f} device "
+                    f"ms = {out['gemm_tflops']:.1f} TFLOP/s effective")
+        return out
+
+    def layer_library(key, info, fn, library):
+        """The port's layer without the final LayerNorm beside the one
+        PyTorch call that computes the same function
+        (``nn.Transformer{Encoder,Decoder}Layer``, MHA fast path off), on
+        the same arguments: the layer's library yardstick."""
+        with torch.no_grad():
+            err, _ = compare(f"{key} library {info}", (fn(),), (library(),),
+                             BF16_TOL)
+            ms, lib_ms = time_ms(fn), time_ms(library)
+        log(f"[3 kernels] {key} {info} bfloat16 without the final LN: port "
+            f"{ms:.4f} ms, library layer {lib_ms:.4f} ms (max abs {err:.3g}"
+            f" apart), factor {ms / lib_ms:.3f}")
+        return dict(layer_ms=ms, library_ms=lib_ms, factor=ms / lib_ms)
 
     def attention_core(info, dtype, kernel, library, b, lq, lk):
-        """The attention kernel alone against SDPA on the same operands;
-        its time is the layer's ``library_ms`` (the layer's other work,
-        the products and LayerNorms, has no one-call library twin)."""
+        """The attention kernel alone against SDPA on the same operands
+        (``sdpa_ms``; the whole layer's library call is
+        :func:`layer_library`'s)."""
         got = kernel().view(b, lq, 8, 64).transpose(1, 2)
         # BF16_TOL in both types: the kernel rounds the probabilities to
         # the model dtype before P.V and SDPA does not, and SDPA's f32
@@ -256,7 +282,7 @@ def phase_kernels(model, device):
         ms, lib_ms = time_ms(kernel), time_ms(library)
         log(f"[3 kernels] attention core {info} {str(dtype)[6:]}: max abs "
             f"{err:.3g} vs SDPA; kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms")
-        return dict(attention_ms=ms, library_ms=lib_ms)
+        return dict(attention_ms=ms, sdpa_ms=lib_ms)
 
     gat_p = model.gat_seq.layer_params(0)
     meta_p = model.scene_graph_encoder.kernel_params()
@@ -308,7 +334,14 @@ def phase_kernels(model, device):
                        lambda: (T.fused_encoder_layer(x, km, ep, 8, fl),),
                        lambda: (T.fused_encoder_layer_plain(x, km, ep, 8, fl),),
                        flops=T.encoder_layer_flops(TEXT_B, l, final_ln=True),
-                       inputs=(x, km, ep, fl), outputs=(x,))
+                       inputs=(x, km, ep, fl), outputs=(x,),
+                       gemm_flops=2.0 * TEXT_B * l * 512 * (4 * 512 + 2 * 2048))
+            if dtype == torch.bfloat16:
+                elib = T.encoder_layer_library(ep, 8, dtype)
+                r.update(layer_library(
+                    "fused_encoder_layer", f"B={TEXT_B} L={l}",
+                    lambda: T.fused_encoder_layer(x, km, ep, 8),
+                    lambda: elib(x, km)))
             # the attention core alone against F.scaled_dot_product_attention
             # on the same q, k, v: the one library call for part of the layer
             qkv = torch.randn(TEXT_B * l, 3 * 512, device=device).to(dtype)
@@ -324,7 +357,15 @@ def phase_kernels(model, device):
                        lambda: (T.fused_decoder_layer(tgt, x, dp, 8, fl),),
                        lambda: (T.fused_decoder_layer_plain(tgt, x, dp, 8, fl),),
                        flops=T.decoder_layer_flops(TEXT_B, 4, l, final_ln=True),
-                       inputs=(tgt, x, dp, fl), outputs=(tgt,))
+                       inputs=(tgt, x, dp, fl), outputs=(tgt,),
+                       gemm_flops=2.0 * 512 * (TEXT_B * 4 * (6 * 512 + 2 * 2048)
+                                               + TEXT_B * l * 2 * 512))
+            if dtype == torch.bfloat16:
+                dlib = T.decoder_layer_library(dp, 8, dtype)
+                r.update(layer_library(
+                    "fused_decoder_layer", f"B={TEXT_B} T=4 L={l}",
+                    lambda: T.fused_decoder_layer(tgt, x, dp, 8),
+                    lambda: dlib(tgt, x)))
             q4 = torch.randn(TEXT_B * 4, 512, device=device).to(dtype)
             kv = qkv[:, 512:].contiguous()
             r.update(attention_core(
@@ -419,9 +460,10 @@ def device_profile(fn):
 
 
 # the port's kernels by name, the most specific first
-KERNEL_FAMILIES = ("gemm_any", "gemm", "reduce_rows", "colsum",
+KERNEL_FAMILIES = ("gemm_any", "gemm_sm90", "gemm", "reduce_rows", "colsum",
                    "gat_edge_bwd", "gat_edge", "graph_norm_bwd", "graph_norm",
-                   "attention_bwd", "attention", "ln_bwd", "residual_ln",
+                   "attention_bwd", "attention_mma", "attention", "ln_bwd",
+                   "residual_ln",
                    "relu_bwd", "gelu_bwd", "scatter_mean_bwd", "scatter_mean",
                    "scatter_rows", "instr_gelu")
 
@@ -507,9 +549,9 @@ def phase_whole_forward(pred, ds):
 KERNELS = {
     "fused_gat_layer": ("isubgvqa_tpu_torch/csrc/gat_kernel.cu",
                         "isubgvqa_tpu/ops/pallas/gat_kernel.py:229"),
-    "fused_encoder_layer": ("isubgvqa_tpu_torch/csrc/text_kernel.cu",
+    "fused_encoder_layer": ("isubgvqa_tpu_torch/csrc/gemm_sm90.cu",
                             "isubgvqa_tpu/ops/pallas/text_kernel.py:255"),
-    "fused_decoder_layer": ("isubgvqa_tpu_torch/csrc/text_kernel.cu",
+    "fused_decoder_layer": ("isubgvqa_tpu_torch/csrc/gemm_sm90.cu",
                             "isubgvqa_tpu/ops/pallas/text_kernel.py:387"),
     "fused_metalayer": ("isubgvqa_tpu_torch/csrc/metalayer_kernel.cu",
                         "isubgvqa_tpu/ops/pallas/metalayer_kernel.py:143"),
@@ -521,6 +563,19 @@ KERNELS = {
                                   "isubgvqa_tpu/ops/pallas/text_train.py:622"),
     "fused_decoder_layer_train": ("isubgvqa_tpu_torch/csrc/text_train.cu",
                                   "isubgvqa_tpu/ops/pallas/text_train.py:742"),
+}
+
+# The one PyTorch call that computes each text layer (``library_ms``);
+# SDPA on the attention core alone stays on its own key (``sdpa_ms``).
+LIBRARY_LAYERS = {
+    "fused_encoder_layer": "nn.TransformerEncoderLayer, MHA fast path off, "
+                           "against the port's layer without the final LN",
+    "fused_decoder_layer": "nn.TransformerDecoderLayer, against the port's "
+                           "layer without the final LN",
+    "fused_encoder_layer_train": "nn.TransformerEncoderLayer fwd+bwd, train "
+                                 "mode, dropout 0.1",
+    "fused_decoder_layer_train": "nn.TransformerDecoderLayer fwd+bwd, train "
+                                 "mode, dropout 0.1",
 }
 
 TRAIN_B = 256
@@ -583,6 +638,7 @@ def phase_train_kernels(model, device):
     from isubgvqa_tpu_torch.models.layers import keep_mask
     from isubgvqa_tpu_torch.ops import gat_train as G
     from isubgvqa_tpu_torch.ops import metalayer_train as M
+    from isubgvqa_tpu_torch.ops import text_kernel as TK
     from isubgvqa_tpu_torch.ops import text_train as T
 
     rng = np.random.default_rng(1)
@@ -659,6 +715,22 @@ def phase_train_kernels(model, device):
             f"Lq={lq} Lk={lk} {str(dtype)[6:]}, same q/k/v/bias/cotangent: "
             f"port {ms:.4f} ms, SDPA {lib_ms:.4f} ms")
         return ms, lib_ms
+
+    def library_fwd_bwd(key, info, library, inputs):
+        """Forward + backward of the one PyTorch call that computes the
+        training layer (``nn.Transformer{Encoder,Decoder}Layer`` in train
+        mode, dropout 0.1 drawn inside the call, bf16 parameters), the
+        gradients of every parameter and of the inputs that require them:
+        the layer's library yardstick."""
+        out = library(*inputs)
+        leaves = [t for t in inputs if t.requires_grad]
+        leaves += [p for p in library.layer.parameters()]
+        cot = torch.randn_like(out)
+        ms = time_ms(lambda: torch.autograd.grad(library(*inputs), leaves,
+                                                 cot), iters=5)
+        log(f"[7 train kernels] {key} {info} bfloat16: library layer fwd+bwd "
+            f"{ms:.3f} ms")
+        return dict(library_ms=ms)
 
     def gemm_accuracy():
         """The backward GEMM (``wgrad``: transposed A, split-K, the slices
@@ -738,8 +810,13 @@ def phase_train_kernels(model, device):
                        (torch.randn(b, l, d, device=device),),
                        T.encoder_layer_train_flops(b, l), largest,
                        gemm_flops=4.0 * b * l * (4 * d * d + 2 * d * 2048))
-            r["attention_ms"], r["library_ms"] = core_fwd_bwd("self", l, l,
-                                                              dtype, km)
+            r["attention_ms"], r["sdpa_ms"] = core_fwd_bwd("self", l, l,
+                                                           dtype, km)
+            if dtype == torch.bfloat16:
+                r.update(library_fwd_bwd(
+                    "fused_encoder_layer_train", info,
+                    TK.encoder_layer_library(masters(enc_p), 8, dtype, 0.1),
+                    [x.clone().requires_grad_(True), km]))
             entries[("fused_encoder_layer_train", dtype)] = r
             tgt = torch.randn(b, 4, d, device=device).to(dtype)
             dmasks = {"self_attn": draw(b, 8, 4, 4), "post_sa": draw(b, 4, d),
@@ -757,8 +834,14 @@ def phase_train_kernels(model, device):
                        T.decoder_layer_train_flops(b, 4, l), largest,
                        gemm_flops=4.0 * (b * 4 * (6 * d * d + 2 * d * 2048)
                                          + b * l * 2 * d * d))
-            r["attention_ms"], r["library_ms"] = core_fwd_bwd("cross", 4, l,
-                                                              dtype, None)
+            r["attention_ms"], r["sdpa_ms"] = core_fwd_bwd("cross", 4, l,
+                                                           dtype, None)
+            if dtype == torch.bfloat16:
+                r.update(library_fwd_bwd(
+                    "fused_decoder_layer_train", info,
+                    TK.decoder_layer_library(masters(dec_p), 8, dtype, 0.1),
+                    [tgt.clone().requires_grad_(True),
+                     x.clone().requires_grad_(True)]))
             entries[("fused_decoder_layer_train", dtype)] = r
     torch.cuda.synchronize()
     return entries
@@ -990,21 +1073,22 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "shape": r["shape"], "dtype": "bfloat16"}
+        text = k in LIBRARY_LAYERS    # factor: the port's ms over the library's
+        row.update(library_call=LIBRARY_LAYERS.get(k),
+                   sdpa_ms=r.get("sdpa_ms"), attention_ms=r.get("attention_ms"))
         if k in PER_STEP:
             row.update(bwd_launches=counts[k + "_bwd"],
                        launches_per_step=PER_STEP[k],
                        ms_covers="forward + backward",
                        grad_err=r["grad_err"],
-                       gemm_any_tflops=r.get("gemm_any_tflops"),
-                       library_call=("F.scaled_dot_product_attention fwd+bwd,"
-                                     " attention core only"
-                                     if r["library_ms"] is not None else None),
-                       attention_ms=r.get("attention_ms"))
-        else:
-            row.update(library_call=("F.scaled_dot_product_attention, "
-                                     "attention core only"
-                                     if "attention_ms" in r else None),
-                       attention_ms=r.get("attention_ms"))
+                       gemm_any_tflops=r.get("gemm_any_tflops"))
+            if text:
+                row["factor"] = r["ms"] / r["library_ms"]
+        elif text:     # the bf16 layer: the Hopper GEMM and the mma core
+            row.update(sources=[src, "isubgvqa_tpu_torch/csrc/text_kernel.cu"],
+                       layer_ms=r["layer_ms"], factor=r["factor"],
+                       gemm_tflops=r.get("gemm_tflops"),
+                       device_ms=r.get("device_ms"))
         line.append(row)
     log(f"train step median {step_ms:.1f} ms at batch {TRAIN_B}")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -38,11 +38,15 @@ P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 _SIGNATURES = {
     "isg_gemm": [P, P, I, I] * 3 + [I, P, I, P, P, P, P, P, I, I, I, I, I,
                                     I, I, I, P],
+    "isg_gemm_sm90": [P, I, P, I, P, P, P, I, I, I, I, I, P],
+    "isg_gemm_ln_sm90": [P, I, P, I, P, P, I] + [P] * 8 + [I, I, I, I, F, P],
     "isg_gemm_any": [P, I, I, P, P, I, I, P, I, I, I, I, I, P, P, I, P],
     "isg_reduce_rows": [P, P, I, I, I, I, I, P],
     "isg_colsum": [P, I, I, I, P, I, P, I, P],
     "isg_attention": [P, I, P, I, P, I, P, P, P, P, I, I, I, I, I, I, F, I,
                       P],
+    "isg_attention_mma": [P, I, P, I, P, I, P, P, P, P, I, I, I, I, I, F,
+                          P],
     "isg_attention_bwd": [P, I, P, I, P, I, P, P, P, I, P, I, P, I, P, I, I,
                           I, I, I, I, F, I, P],
     "isg_residual_ln": [P, I, P, P, P, P, P, P, P, P, P, I, I, I, F, P],
@@ -141,13 +145,20 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def call(name: str, *args) -> None:
-    """Launch ``name`` on the current stream; raise on a CUDA error."""
+_INVALID_VALUE = 1          # cudaErrorInvalidValue: arguments refused
+
+
+def call(name: str, *args, invalid: Optional[str] = None) -> None:
+    """Launch ``name`` on the current stream; raise on a CUDA error (a
+    ``ValueError`` saying ``invalid`` where the kernel refused its
+    arguments and the caller gave the reason)."""
     # the current stream's raw handle: torch.cuda.current_stream() builds
     # a Stream object first, several microseconds of host time a launch
     stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
-    err = getattr(lib(), name)(*args, stream)
+    err = getattr(_lib or lib(), name)(*args, stream)
     if err != 0:
+        if err == _INVALID_VALUE and invalid:
+            raise ValueError(f"{name}: {invalid}")
         raise RuntimeError(f"{name} failed with CUDA error {err}")
 
 

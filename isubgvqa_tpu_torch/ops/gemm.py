@@ -95,6 +95,82 @@ def gemm(segments: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
     return out
 
 
+_SM90_RULE = ("bf16 row-major operands whose width K, weight rows N and row "
+              "pitches are multiples of 8 elements, 16-byte aligned")
+
+
+def _sm90_check(a: torch.Tensor, weight: torch.Tensor, *vectors) -> None:
+    """What Python must check before the Hopper GEMM: the types, CUDA,
+    unit column strides and matching K (the kernel itself refuses widths,
+    pitches and alignments that TMA cannot tile).  Few attribute reads:
+    the question stack calls it nine times a decoder layer."""
+    if a.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
+        raise TypeError(f"gemm_sm90 takes {_SM90_RULE} (got {a.dtype}, "
+                        f"{weight.dtype})")
+    if (a.dim() != 2 or a.shape[1] != weight.shape[1] or a.stride(1) != 1
+            or weight.stride(1) != 1 or not a.is_cuda or not weight.is_cuda):
+        raise ValueError(f"gemm_sm90 takes {_SM90_RULE}: A {tuple(a.shape)}, "
+                         f"weight {tuple(weight.shape)}")
+    for t in vectors:
+        if t is not None and not (t.is_cuda and t.is_contiguous()):
+            raise ValueError("gemm_sm90: contiguous CUDA tensors expected")
+
+
+def gemm_sm90(a: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
+              out_dtype: torch.dtype = torch.bfloat16,
+              emul: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``act(a @ weight.T + bias) * emul`` on the Hopper GEMM
+    (``csrc/gemm_sm90.cu``: TMA and wgmma).  ``a [M, K]`` and ``weight
+    [N, K]`` bf16, ungathered, K, N and the row pitches multiples of 8
+    elements and 16-byte aligned; ``bias [N]`` and ``emul [M, N]`` f32.
+    Returns ``[M, N]`` at ``out_dtype`` (f32 or bf16).  Raises on an
+    operand the kernel cannot take."""
+    _sm90_check(a, weight, bias, emul)
+    m = a.shape[0]
+    n = weight.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    _lib.call("isg_gemm_sm90", a.data_ptr(), a.stride(0), weight.data_ptr(),
+              weight.stride(0), _lib.ptr(bias), _lib.ptr(emul),
+              out.data_ptr(), _lib.dt(out), m, n, a.shape[1], ACT[act],
+              invalid=_SM90_RULE)
+    return out
+
+
+def gemm_ln_sm90(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                 final_ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 out_f32: bool = True,
+                 out_t: Optional[torch.dtype] = None,
+                 ymask: Optional[torch.Tensor] = None,
+                 z_out: Optional[torch.Tensor] = None, eps: float = 1e-6):
+    """``LN(x + (a @ weight.T + bias) * ymask)`` with the LayerNorm in the
+    Hopper GEMM's epilogue, optionally followed by ``final_ln``; the
+    LayerNorm's rows are ``N = weight.shape[0] <= 512`` wide.  ``x [M, N]``
+    f32 or bf16, the rest f32; ``z_out`` (f32 ``[M, N]``) receives the
+    pre-LN sum.  Returns ``(f32 result or None, result at out_t or None)``,
+    as :func:`.text_kernel._residual_ln`."""
+    fs, fb = final_ln if final_ln is not None else (None, None)
+    _sm90_check(a, weight, bias, x, ymask, z_out)
+    m = a.shape[0]
+    n = weight.shape[0]
+    if tuple(x.shape) != (m, n):
+        raise ValueError(f"gemm_ln_sm90: x {tuple(x.shape)} for [{m}, {n}]")
+    dev = a.device
+    of = torch.empty((m, n), dtype=torch.float32, device=dev) \
+        if out_f32 else None
+    ot = torch.empty((m, n), dtype=out_t, device=dev) \
+        if out_t is not None else None
+    _lib.call("isg_gemm_ln_sm90", a.data_ptr(), a.stride(0),
+              weight.data_ptr(), weight.stride(0), bias.data_ptr(),
+              x.data_ptr(), _lib.dt(x), _lib.ptr(ymask), scale.data_ptr(),
+              shift.data_ptr(), _lib.ptr(fs), _lib.ptr(fb), _lib.ptr(z_out),
+              _lib.ptr(of), _lib.ptr(ot),
+              _lib.dt(ot) if ot is not None else 0, m, n, a.shape[1], eps,
+              invalid=_SM90_RULE + ", N <= 512")
+    return of, ot
+
+
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(hi, lo)`` with ``x ~= hi + lo``: ``hi`` is ``x`` rounded to TF32
     (a 10-bit mantissa, to nearest, ties away from zero: PTX

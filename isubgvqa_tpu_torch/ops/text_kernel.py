@@ -4,25 +4,38 @@ Replaces ``isubgvqa_tpu/ops/pallas/text_kernel.py:fused_encoder_layer``
 (``_enc_kernel``) and ``fused_decoder_layer`` (``_dec_kernel``).
 
 Design on the H100: a short fixed sequence of hand-written launches per
-layer — the shared GEMM (``csrc/gemm.cu``) for the QKV, output and FFN
-products, the attention core (``csrc/text_kernel.cu:isg_attention``, one
-block per question and head) and the residual + LayerNorm kernel
-(``isg_residual_ln``, one warp per row, the stack's final LayerNorm
-folded into the last layer).  Intermediates that the Pallas kernel
-rounds to the model dtype before their next product (q, k, v, the
-attention output, the ReLU activations) are stored at that dtype;
-residual streams stay f32.
+layer, by the model dtype (fixed per call site, no fallback between
+them):
+
+* bf16 — the Hopper GEMM (``csrc/gemm_sm90.cu``: TMA loads, ``wgmma``)
+  for the QKV and FFN-in products; the out projection and FFN-out
+  products with the residual add and LayerNorm in their epilogue (the
+  stack's final LayerNorm folded into the last one); the tensor-core
+  attention core (``csrc/text_kernel.cu:isg_attention_mma``, one block per
+  question and four heads, one warp per head).  4 launches per encoder
+  layer, 9 per decoder layer;
+* f32 — the shared GEMM of the graph layers (``csrc/gemm.cu``, 3xTF32),
+  the scalar attention core (``isg_attention``) and the residual +
+  LayerNorm kernel (``isg_residual_ln``).
+
+Intermediates that the Pallas kernel rounds to the model dtype before
+their next product (q, k, v, the attention output, the ReLU activations)
+are stored at that dtype; residual streams stay f32.
 
 Bound: at L = 16/32 tokens and B = 32..1024 questions a layer's
 products (about 2 * 12 * D^2 FLOPs per token, D = 512) dominate, so it
-is operation-bound, and its time is mostly the shared GEMM's (bf16 on
-the tensor cores, ``csrc/gemm.cu``).
+is operation-bound, and its time is mostly the GEMM's.
 
 On a CPU tensor the wrapper runs the ``*_plain`` version, the same
 arithmetic in plain PyTorch.  On a CUDA tensor it launches the kernels
 or raises.  The plain versions take optional dropout keep masks (the
 training layers' forward, :mod:`.text_train`); the launches can keep
 what the training backward reads (``save=True``).
+
+:func:`encoder_layer_library` and :func:`decoder_layer_library` are the
+one-call PyTorch layers that compute the same functions
+(``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer``), for
+measurements only: the port never calls them.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _lib
-from .gemm import gemm, linear_plain, ste
+from .gemm import gemm, gemm_ln_sm90, gemm_sm90, linear_plain, ste
 
 LN_EPS = 1e-6      # flax nn.LayerNorm default, as in the JAX package
 
@@ -150,19 +163,54 @@ def _attention(q, q_off, q_rs, kv, k_off, v_off, kv_rs, bias, b, lq, lk,
     es = q.element_size()
     o = torch.empty((b * lq, d), dtype=q.dtype, device=q.device)
     dh = d // num_heads
-    _lib.check_cuda(keep, probs)
-    _lib.call("isg_attention", q.data_ptr() + q_off * es, q_rs,
-              kv.data_ptr() + k_off * es, kv_rs, kv.data_ptr() + v_off * es,
-              kv_rs, _lib.ptr(bias), _lib.ptr(keep), _lib.ptr(probs),
-              o.data_ptr(), d, b, lq, lk, num_heads,
-              dh, 1.0 / math.sqrt(dh), _lib.dt(q))
+    _lib.check_cuda(q, kv, bias, keep, probs)
+    qp, kp, vp = (q.data_ptr() + q_off * es, kv.data_ptr() + k_off * es,
+                  kv.data_ptr() + v_off * es)
+    if q.dtype == torch.bfloat16:
+        # tensor cores: 16-byte staging, so pitches and offsets in 8s
+        if (q_off | k_off | v_off) % 8:
+            raise ValueError("isg_attention_mma takes column offsets in 8s")
+        _lib.call("isg_attention_mma", qp, q_rs, kp, kv_rs, vp, kv_rs,
+                  _lib.ptr(bias), _lib.ptr(keep), _lib.ptr(probs),
+                  o.data_ptr(), b, lq, lk, num_heads, dh,
+                  1.0 / math.sqrt(dh),
+                  invalid=f"takes L <= 64, head width 16/32/64/128, H <= 16 "
+                          f"and row pitches in 8s (got Lq={lq}, Lk={lk}, "
+                          f"dh={dh}, H={num_heads})")
+    else:
+        _lib.call("isg_attention", qp, q_rs, kp, kv_rs, vp, kv_rs,
+                  _lib.ptr(bias), _lib.ptr(keep), _lib.ptr(probs),
+                  o.data_ptr(), d, b, lq, lk, num_heads,
+                  dh, 1.0 / math.sqrt(dh), _lib.dt(q))
     return o
+
+
+def _linear(a, w, bias, act=None, out_dtype=torch.float32, emul=None):
+    """One product of the layer: the Hopper GEMM for bf16 operands, the
+    shared GEMM (3xTF32) for f32 ones."""
+    if w.dtype == torch.bfloat16:
+        return gemm_sm90(a, w, bias, act, out_dtype, emul)
+    return gemm([(a, None)], w, bias, act=act, out_dtype=out_dtype,
+                emul=emul)
+
+
+def _linear_ln(a, w, bias, x, s, bb, final_ln=None, out_f32=True,
+               out_t=None, ymask=None, z_out=None):
+    """``LN(x + (a @ w.T + bias) * ymask)``: for bf16 the LayerNorm runs in
+    the Hopper GEMM's epilogue; for f32 the product goes to the shared
+    GEMM and then :func:`_residual_ln`.  Returns ``(f32, at out_t)``."""
+    if w.dtype == torch.bfloat16:
+        return gemm_ln_sm90(a, w, bias, x, s, bb, final_ln, out_f32, out_t,
+                            ymask, z_out, LN_EPS)
+    y = gemm([(a, None)], w, bias)
+    return _residual_ln(x, y, s, bb, final_ln, out_f32, out_t, ymask, z_out)
 
 
 def _residual_ln(x, y, s, bb, final_ln=None, out_f32=True, out_t=None,
                  ymask=None, z_out=None):
     """LN(x + y * ymask), optionally followed by ``final_ln``; ``z_out``
-    (f32 ``[M, D]``) receives the pre-LN sum."""
+    (f32 ``[M, D]``) receives the pre-LN sum.  ``D <= 1024``, a multiple
+    of 4."""
     m, d = x.shape
     of = (torch.empty((m, d), dtype=torch.float32, device=x.device)
           if out_f32 else None)
@@ -174,7 +222,7 @@ def _residual_ln(x, y, s, bb, final_ln=None, out_f32=True, out_t=None,
               s.data_ptr(), bb.data_ptr(), _lib.ptr(fs), _lib.ptr(fb),
               _lib.ptr(ymask), _lib.ptr(z_out),
               _lib.ptr(of), _lib.ptr(ot), _lib.dt(ot) if ot is not None else 0,
-              m, d, LN_EPS)
+              m, d, LN_EPS, invalid="takes rows of D <= 1024, a multiple of 4")
     return of, ot
 
 
@@ -211,17 +259,15 @@ def encoder_launch(x, key_mask, params, num_heads: int = 8,
     probs = torch.empty((b, num_heads, l, l), **f32) if save else None
     z1 = torch.empty((r, d), **f32) if save else None
     z2 = torch.empty((r, d), **f32) if save else None
-    qkv = gemm([(xt, None)], p["in_w"], p["in_b"], out_dtype=dtype)
+    qkv = _linear(xt, p["in_w"], p["in_b"], out_dtype=dtype)
     o = _attention(qkv, 0, 3 * d, qkv, d, 2 * d, 3 * d, kb, b, l, l, d,
                    num_heads, keep, probs)
-    a = gemm([(o, None)], p["out_w"], p["out_b"])
-    x1f, x1t = _residual_ln(xt, a, p["n1s"], p["n1b"], out_t=dtype,
-                            ymask=m1, z_out=z1)
-    hid = gemm([(x1t, None)], p["w1"], p["b1"], act="relu", out_dtype=dtype,
-               emul=mf)
-    y = gemm([(hid, None)], p["w2"], p["b2"])
-    _, out = _residual_ln(x1f, y, p["n2s"], p["n2b"], final_ln,
-                          out_f32=False, out_t=dtype, ymask=m2, z_out=z2)
+    x1f, x1t = _linear_ln(o, p["out_w"], p["out_b"], xt, p["n1s"], p["n1b"],
+                          out_t=dtype, ymask=m1, z_out=z1)
+    hid = _linear(x1t, p["w1"], p["b1"], "relu", dtype, mf)
+    _, out = _linear_ln(hid, p["w2"], p["b2"], x1f, p["n2s"], p["n2b"],
+                        final_ln, out_f32=False, out_t=dtype, ymask=m2,
+                        z_out=z2)
     saved = (dict(xt=xt, kb=kb, keep=keep, m1=m1, mf=mf, m2=m2, qkv=qkv,
                   probs=probs, o=o, z1=z1, x1t=x1t, hid=hid, z2=z2)
              if save else None)
@@ -269,26 +315,24 @@ def decoder_launch(tgt, memory, params, num_heads: int = 8,
                   for _ in range(3))
     tt = tgt.to(dtype).reshape(rt, d).contiguous()
     mt = memory.reshape(b * l, d).contiguous()
-    qkv = gemm([(tt, None)], p["s_in_w"], p["s_in_b"], out_dtype=dtype)
+    # the memory's K/V projection, the layer's largest product, needs
+    # nothing of the self-attention: launched first, it runs while the
+    # host issues the rest
+    kv = _linear(mt, p["c_in_w"][d:], p["c_in_b"][d:], out_dtype=dtype)
+    qkv = _linear(tt, p["s_in_w"], p["s_in_b"], out_dtype=dtype)
     o_s = _attention(qkv, 0, 3 * d, qkv, d, 2 * d, 3 * d, None, b, t, t, d,
                      num_heads, ks, ps)
-    a = gemm([(o_s, None)], p["s_out_w"], p["s_out_b"])
-    t1f, t1t = _residual_ln(tt, a, p["n1s"], p["n1b"], out_t=dtype,
-                            ymask=m1, z_out=z1)
-    q = gemm([(t1t, None)], p["c_in_w"][:d], p["c_in_b"][:d],
-             out_dtype=dtype)
-    kv = gemm([(mt, None)], p["c_in_w"][d:], p["c_in_b"][d:],
-              out_dtype=dtype)
+    t1f, t1t = _linear_ln(o_s, p["s_out_w"], p["s_out_b"], tt, p["n1s"],
+                          p["n1b"], out_t=dtype, ymask=m1, z_out=z1)
+    q = _linear(t1t, p["c_in_w"][:d], p["c_in_b"][:d], out_dtype=dtype)
     o_c = _attention(q, 0, d, kv, 0, d, 2 * d, None, b, t, l, d, num_heads,
                      kc, pc)
-    a = gemm([(o_c, None)], p["c_out_w"], p["c_out_b"])
-    t2f, t2t = _residual_ln(t1f, a, p["n2s"], p["n2b"], out_t=dtype,
-                            ymask=m2, z_out=z2)
-    hid = gemm([(t2t, None)], p["w1"], p["b1"], act="relu", out_dtype=dtype,
-               emul=mf)
-    y = gemm([(hid, None)], p["w2"], p["b2"])
-    _, out = _residual_ln(t2f, y, p["n3s"], p["n3b"], final_ln,
-                          out_f32=False, out_t=dtype, ymask=m3, z_out=z3)
+    t2f, t2t = _linear_ln(o_c, p["c_out_w"], p["c_out_b"], t1f, p["n2s"],
+                          p["n2b"], out_t=dtype, ymask=m2, z_out=z2)
+    hid = _linear(t2t, p["w1"], p["b1"], "relu", dtype, mf)
+    _, out = _linear_ln(hid, p["w2"], p["b2"], t2f, p["n3s"], p["n3b"],
+                        final_ln, out_f32=False, out_t=dtype, ymask=m3,
+                        z_out=z3)
     saved = (dict(tt=tt, mt=mt, ks=ks, kc=kc, m1=m1, m2=m2, mf=mf, m3=m3,
                   qkv=qkv, ps=ps, o_s=o_s, z1=z1, t1t=t1t, q=q, kv=kv, pc=pc,
                   o_c=o_c, z2=z2, t2t=t2t, hid=hid, z3=z3)
@@ -321,6 +365,87 @@ def attention_library(q, k, v, bias):
     it."""
     mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+_ENC_LIBRARY = {"self_attn.in_proj_weight": "in_w",
+                "self_attn.in_proj_bias": "in_b",
+                "self_attn.out_proj.weight": "out_w",
+                "self_attn.out_proj.bias": "out_b",
+                "norm1.weight": "n1s", "norm1.bias": "n1b",
+                "linear1.weight": "w1", "linear1.bias": "b1",
+                "linear2.weight": "w2", "linear2.bias": "b2",
+                "norm2.weight": "n2s", "norm2.bias": "n2b"}
+_DEC_LIBRARY = {"self_attn.in_proj_weight": "s_in_w",
+                "self_attn.in_proj_bias": "s_in_b",
+                "self_attn.out_proj.weight": "s_out_w",
+                "self_attn.out_proj.bias": "s_out_b",
+                "multihead_attn.in_proj_weight": "c_in_w",
+                "multihead_attn.in_proj_bias": "c_in_b",
+                "multihead_attn.out_proj.weight": "c_out_w",
+                "multihead_attn.out_proj.bias": "c_out_b",
+                "norm1.weight": "n1s", "norm1.bias": "n1b",
+                "norm2.weight": "n2s", "norm2.bias": "n2b",
+                "norm3.weight": "n3s", "norm3.bias": "n3b",
+                "linear1.weight": "w1", "linear1.bias": "b1",
+                "linear2.weight": "w2", "linear2.bias": "b2"}
+
+
+def _library_layer(cls, names, params, num_heads, dtype, dropout):
+    d = params[names["linear1.weight"]].shape[1]
+    f = params[names["linear1.weight"]].shape[0]
+    dev = params[names["linear1.weight"]].device
+    layer = cls(d, num_heads, dim_feedforward=f, dropout=dropout,
+                activation="relu", layer_norm_eps=LN_EPS, batch_first=True,
+                norm_first=False, device=dev, dtype=dtype)
+    layer.load_state_dict({k: params[v].detach() for k, v in names.items()})
+    return layer.train(dropout > 0)
+
+
+def _no_fastpath(fn):
+    """``fn`` with the MHA fast path off: in eval mode it would read the
+    additive key mask (the CLIP attention mask, ADDED to the logits) as a
+    padding mask and compute another function."""
+    def run(*args):
+        was = torch.backends.mha.get_fastpath_enabled()
+        torch.backends.mha.set_fastpath_enabled(False)
+        try:
+            return fn(*args)
+        finally:
+            torch.backends.mha.set_fastpath_enabled(was)
+    return run
+
+
+def encoder_layer_library(params, num_heads: int = 8,
+                          dtype: torch.dtype = torch.float32,
+                          dropout: float = 0.0):
+    """The one PyTorch call that computes :func:`fused_encoder_layer` (no
+    final LayerNorm): ``nn.TransformerEncoderLayer`` (post-LN, ReLU,
+    ``batch_first``, eps 1e-6) loaded from the port's parameter dict
+    (:data:`ENC_KEYS`) at ``dtype``; ``dropout > 0`` builds it in train
+    mode.  Returns ``run(x, key_mask)`` (the module as ``run.layer``);
+    the float key mask is added to the key logits.  A yardstick for
+    measurements only."""
+    layer = _library_layer(torch.nn.TransformerEncoderLayer, _ENC_LIBRARY,
+                           params, num_heads, dtype, dropout)
+    run = _no_fastpath(lambda x, key_mask: layer(
+        x, src_key_padding_mask=key_mask.to(x.dtype)))
+    run.layer = layer
+    return run
+
+
+def decoder_layer_library(params, num_heads: int = 8,
+                          dtype: torch.dtype = torch.float32,
+                          dropout: float = 0.0):
+    """The one PyTorch call that computes :func:`fused_decoder_layer` (no
+    final LayerNorm): ``nn.TransformerDecoderLayer`` from the port's
+    parameter dict (:data:`DEC_KEYS`), as :func:`encoder_layer_library`.
+    Returns ``run(tgt, memory)``."""
+    layer = _library_layer(torch.nn.TransformerDecoderLayer, _DEC_LIBRARY,
+                           params, num_heads, dtype, dropout)
+    run = _no_fastpath(lambda tgt, memory: layer(tgt.to(memory.dtype),
+                                                 memory))
+    run.layer = layer
+    return run
 
 
 # ------------------------------------------------------------ FLOP models

@@ -446,3 +446,218 @@ def test_attention_bwd_cases(card, lq, lk, keep_on):
                           (merge(qs.grad), merge(ks.grad), merge(vs.grad))):
         check_grads([g], [w], torch.float32, [name])
     assert all(torch.equal(x, y) for x, y in zip(kernel(), got))
+
+
+# ------------------------------------------------------------ Hopper GEMM
+#
+# The bf16 products of the question stack (csrc/gemm_sm90.cu: TMA and
+# wgmma) against the f32 product of the same bf16 operands: f32 output to
+# 2e-5 of the result's scale (summation order only), bf16 output to 8e-3
+# (one rounding to bf16, 2^-9 of the value, plus the sums).
+
+SM90_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
+SM90_CASES = [(m, n, k) for m in (1, 63, 64, 65, 2048, 16384)
+              for n, k in ((512, 512), (1024, 2048), (1536, 512),
+                           (2048, 2048))]
+
+
+def _sm90_operands(m, n, k, seed):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    a = torch.randn(m, k, device=DEVICE, generator=g).to(torch.bfloat16)
+    w = (torch.randn(n, k, device=DEVICE, generator=g) / k ** 0.5).to(
+        torch.bfloat16)
+    bias = torch.randn(n, device=DEVICE, generator=g)
+    return g, a, w, bias
+
+
+def _close(got, want, tol):
+    scale = max(1.0, want.abs().max().item())
+    err = (got.float() - want).abs().max().item()
+    assert torch.isfinite(got.float()).all()
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", SM90_CASES,
+                         ids=[f"M{m}_N{n}_K{k}" for m, n, k in SM90_CASES])
+def test_gemm_sm90_matches_plain_product(card, m, n, k):
+    """Ragged M edges (1, 63, 65 rows), every N and K of the text layers,
+    with and without bias, ReLU and ``emul``, to f32 and to bf16, and the
+    same bits on a second run."""
+    from isubgvqa_tpu_torch.ops import gemm
+
+    g, a, w, bias = _sm90_operands(m, n, k, m + n + k)
+    emul = torch.rand(m, n, device=DEVICE, generator=g)
+    prod = a.float() @ w.float().t()
+    for i, (use_bias, act, use_emul, out) in enumerate((
+            (True, None, False, torch.bfloat16),
+            (True, "relu", True, torch.float32),
+            (False, None, False, torch.float32),
+            (True, "relu", True, torch.bfloat16))):
+        if i and m == 16384:
+            break                     # the largest M: one form is enough
+        args = (a, w, bias if use_bias else None, act, out,
+                emul if use_emul else None)
+        got = gemm.gemm_sm90(*args)
+        want = prod + bias if use_bias else prod
+        if act == "relu":
+            want = torch.relu(want)
+        if use_emul:
+            want = want * emul
+        assert got.dtype == out and got.shape == (m, n)
+        _close(got, want, SM90_TOL[out])
+        assert torch.equal(gemm.gemm_sm90(*args), got)
+
+
+@pytest.mark.gpu
+def test_gemm_sm90_rejects_what_tma_cannot_tile(card):
+    """K or N not a multiple of 8, a start not 16-byte aligned, an f32
+    operand: the wrapper raises instead of taking another path."""
+    from isubgvqa_tpu_torch.ops import gemm
+
+    _, a, w, bias = _sm90_operands(64, 512, 512, 0)
+    with pytest.raises(ValueError):
+        gemm.gemm_sm90(a[:, :300].contiguous(), w[:, :300].contiguous())
+    with pytest.raises(ValueError):
+        gemm.gemm_sm90(a, w[:300].contiguous())
+    buf = torch.zeros(64 * 512 + 1, device=DEVICE, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        gemm.gemm_sm90(buf[1:].view(64, 512), w)
+    with pytest.raises(TypeError):
+        gemm.gemm_sm90(a.float(), w)
+
+
+LN_CASES = [(1, 512, 512), (65, 512, 2048), (2048, 512, 512), (50, 64, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", LN_CASES,
+                         ids=[f"M{m}_N{n}_K{k}" for m, n, k in LN_CASES])
+def test_gemm_ln_sm90_matches_plain(card, m, n, k):
+    """The LayerNorm epilogue: an f32 and a bf16 residual, with and without
+    ``ymask``, the final LayerNorm and ``z_out``, against the plain
+    residual + LayerNorm of the f32 product; the same bits on a rerun."""
+    from isubgvqa_tpu_torch.ops import gemm
+    from isubgvqa_tpu_torch.ops.text_kernel import ln_plain
+
+    g, a, w, bias = _sm90_operands(m, n, k, 7 * m + k)
+    vec = lambda s, o: o + s * torch.randn(n, device=DEVICE, generator=g)
+    g1, b1, g2, b2 = vec(0.1, 1.0), vec(0.1, 0.0), vec(0.1, 1.0), vec(0.1, 0.0)
+    ymask = (torch.rand(m, n, device=DEVICE, generator=g) > 0.1).float() / 0.9
+    y = a.float() @ w.float().t() + bias
+    for x_dt, use_mask, final, use_z in ((torch.float32, True, True, True),
+                                         (torch.bfloat16, False, False, False),
+                                         (torch.float32, False, True, False)):
+        x = torch.randn(m, n, device=DEVICE, generator=g).to(x_dt)
+        z = torch.empty(m, n, device=DEVICE) if use_z else None
+        args = (a, w, bias, x, g1, b1, (g2, b2) if final else None, True,
+                torch.bfloat16, ymask if use_mask else None, z)
+        of, ot = gemm.gemm_ln_sm90(*args)
+        zz = x.float() + (y * ymask if use_mask else y)
+        want = ln_plain(zz, g1, b1)
+        if final:
+            want = ln_plain(want, g2, b2)
+        _close(of, want, 1e-4)
+        _close(ot, want, SM90_TOL[torch.bfloat16])
+        if use_z:
+            _close(z, zz, 2e-5)
+        of2, ot2 = gemm.gemm_ln_sm90(*args)
+        assert torch.equal(of2, of) and torch.equal(ot2, ot)
+
+
+# ------------------------------------------------------------ bf16 core
+
+ATTN_CASES = [(lq, lk, bias, keep) for lq, lk in ((1, 1), (7, 7), (16, 16),
+                                                  (32, 32), (33, 33),
+                                                  (64, 64), (4, 32), (4, 64))
+              for bias, keep in ((True, True), (False, False))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "lq,lk,use_bias,use_keep", ATTN_CASES,
+    ids=[f"Lq{a}_Lk{b}_{'bias' if c else 'nobias'}_{'keep' if d else 'nokeep'}"
+         for a, b, c, d in ATTN_CASES])
+def test_attention_mma_matches_plain_core(card, lq, lk, use_bias, use_keep):
+    """``isg_attention_mma`` (bf16, tensor cores): self-attention over the
+    QKV layout (Lq = Lk) and cross-attention (T = 4 queries), the added
+    key bias, ``keep`` and the saved ``probs``, against the plain core
+    with the probabilities rounded to bf16 before P.V; bit-equal reruns.
+    Output to 3e-2 of its scale (bf16 roundings at the same points, f32
+    sums in another order), probabilities to 1e-5."""
+    from isubgvqa_tpu_torch.ops.text_kernel import _attention
+
+    torch.manual_seed(8)
+    b, heads, dh = 3, 8, 64
+    d = heads * dh
+    bias = None
+    if use_bias:
+        bias = torch.ones(b, lk, device=DEVICE)
+        bias[0, lk // 2 + 1:] = 0.0             # the CLIP mask's padding
+    keep = ((torch.rand(b, heads, lq, lk, device=DEVICE) > 0.2).float() / 0.8
+            if use_keep else None)
+    if lq == lk:
+        src = torch.randn(b * lq, 3 * d, device=DEVICE).to(torch.bfloat16)
+        q_args = (src, 0, 3 * d, src, d, 2 * d, 3 * d)
+        q, k, v = src.view(b, lq, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    else:
+        qr = torch.randn(b * lq, d, device=DEVICE).to(torch.bfloat16)
+        kv = torch.randn(b * lk, 2 * d, device=DEVICE).to(torch.bfloat16)
+        q_args = (qr, 0, d, kv, 0, d, 2 * d)
+        q = qr.view(b, lq, heads, dh).transpose(1, 2)
+        k, v = kv.view(b, lk, 2, heads, dh).permute(2, 0, 3, 1, 4)
+
+    def run():
+        probs = torch.empty(b, heads, lq, lk, device=DEVICE)
+        o = _attention(*q_args, bias, b, lq, lk, d, heads, keep, probs)
+        return o, probs
+
+    o, probs = run()
+    s = (q.float() @ k.float().transpose(-1, -2)) / dh ** 0.5
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    p = torch.softmax(s, -1)
+    pk = p if keep is None else p * keep
+    want = (pk.to(torch.bfloat16).float() @ v.float()).transpose(1, 2)
+    _close(o, want.reshape(b * lq, d), TOL[torch.bfloat16])
+    assert (probs - p).abs().max().item() <= 1e-5
+    o2, probs2 = run()
+    assert torch.equal(o2, o) and torch.equal(probs2, probs)
+
+
+RLN_CASES = [(1, 64), (300, 512), (4097, 512), (70, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", RLN_CASES,
+                         ids=[f"M{m}_D{d}" for m, d in RLN_CASES])
+def test_residual_ln_matches_plain(card, m, d):
+    """The separate residual + LayerNorm pass (``isg_residual_ln``, 16-byte
+    rows; D <= 512 and D <= 1024 take two tilings): f32 and bf16
+    residuals, with and without ``ymask``, the final LayerNorm and
+    ``z_out``, to 1e-5 of the scale (f32 sums in another order); the same
+    bits on a rerun."""
+    from isubgvqa_tpu_torch.ops.text_kernel import _residual_ln, ln_plain
+
+    g = torch.Generator(device=DEVICE).manual_seed(m + d)
+    rn = lambda *s: torch.randn(*s, device=DEVICE, generator=g)
+    y = rn(m, d)
+    g1, b1, g2, b2 = 1 + 0.1 * rn(d), 0.1 * rn(d), 1 + 0.1 * rn(d), 0.1 * rn(d)
+    ymask = (torch.rand(m, d, device=DEVICE, generator=g) > 0.1).float() / 0.9
+    for x_dt, use_mask, final, use_z in ((torch.float32, True, True, True),
+                                         (torch.bfloat16, False, False, False)):
+        x = rn(m, d).to(x_dt)
+        z = torch.empty(m, d, device=DEVICE) if use_z else None
+        args = (x, y, g1, b1, (g2, b2) if final else None, True,
+                torch.bfloat16, ymask if use_mask else None, z)
+        of, ot = _residual_ln(*args)
+        zz = x.float() + (y * ymask if use_mask else y)
+        want = ln_plain(zz, g1, b1)
+        if final:
+            want = ln_plain(want, g2, b2)
+        _close(of, want, 1e-5)
+        _close(ot, want, SM90_TOL[torch.bfloat16])
+        if use_z:
+            _close(z, zz, 1e-6)
+        of2, ot2 = _residual_ln(*args)
+        assert torch.equal(of2, of) and torch.equal(ot2, ot)
