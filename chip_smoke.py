@@ -16,8 +16,13 @@ script exits non-zero):
    ``F.scaled_dot_product_attention``, each text layer (bf16, no final
    LayerNorm) against the one PyTorch call that computes it
    (``nn.Transformer{Encoder,Decoder}Layer``, the MHA fast path off), and
-   device time by kernel at the largest shapes with the text layers'
-   products' effective TFLOP/s on the Hopper GEMM;
+   device time by kernel at the largest shapes with the layers' products'
+   effective TFLOP/s on the Hopper GEMMs (``gemm_sm90`` for the text
+   layers, ``gemm_gather`` for the graph layers) and the port's launches
+   per call; the graph layers' bf16 products on the graph-layer GEMM
+   alone, each against its plain twin (the MetaLayer's three-segment
+   gathered product among them), timed beside ``F.linear`` (cuBLAS) on
+   the same operands with the gathered rows made beforehand;
 4. serving: ``Predictor.predict`` at the full width of the config of
    record (gumbel, k = 3, masks (1, 1, 1, 0.15), bf16, seeded random
    weights) on 64 questions of the GQA-like synthetic mix, then the same
@@ -34,8 +39,11 @@ script exits non-zero):
    k, v, bias and cotangent, the text layers' fwd+bwd beside the
    ``nn.Transformer{Encoder,Decoder}Layer`` call's (bf16), and device
    time by kernel at the largest shapes with the backward GEMM's
-   effective TFLOP/s, and the backward GEMM against an f64 product at the
-   main path's longest reduction;
+   effective TFLOP/s, the backward GEMM against an f64 product at the
+   main path's longest reduction, and, for the f32 encoder layer at
+   L = 32, the FFN pre-activations whose sign differs between the
+   kernel's and the plain forward with ``linear1``'s gradient error over
+   the units that hold no flip;
 8. training: ``train_step`` of the full-width config of record (bf16,
    dropouts on) at batch 256 on the GQA-like synthetic mix through the
    bucketed collators, one warm-up step and 5 counted steps over two
@@ -76,6 +84,10 @@ F32_TOL = 1e-3
 # taken in another order can flip a bf16 rounding (one ulp = 2^-8
 # relative) that later products and norms carry on
 BF16_TOL = 3e-2
+# one product of the graph-layer GEMM against its plain twin: the same
+# bf16 products summed in f32 in another order (an f32 output), and at
+# most one rounding to bf16 apart (2^-9 of the value, a bf16 output)
+GATHER_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 
 
 def log(msg: str) -> None:
@@ -223,6 +235,7 @@ def phase_build():
 def phase_kernels(model, device):
     """Each kernel against its plain version; returns the JSON entries."""
     import torch
+    import torch.nn.functional as F
     from isubgvqa_tpu_torch import ops
     from isubgvqa_tpu_torch.ops import gat_kernel as G
     from isubgvqa_tpu_torch.ops import metalayer_kernel as M
@@ -232,7 +245,7 @@ def phase_kernels(model, device):
     entries = {}
 
     def record(key, info, dtype, fn, plain, flops, inputs, outputs,
-               gemm_flops=None):
+               gemm_flops=None, gemm_family="gemm_sm90", launches=None):
         got, want = fn(), plain()
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         err, rel = compare(f"{key} {info}", got, want, tol)
@@ -247,14 +260,66 @@ def phase_kernels(model, device):
         if dtype == torch.bfloat16 and info.endswith(("E=384", "L=32")):
             _, fam = device_profile(fn)
             out["device_ms"] = sum(fam.values())
+            out["host_ms"] = host_ms(fn)
             log(f"[3 kernels] {key} {info} bfloat16 device time by kernel: "
-                f"{by_kernel(fam) or 'not measured (no CUDA events)'}")
-            if gemm_flops and fam.get("gemm_sm90"):
-                out["gemm_tflops"] = gemm_flops / fam["gemm_sm90"] / 1e9
-                log(f"[3 kernels] {key} {info} products on the Hopper GEMM: "
-                    f"{gemm_flops:.4g} FLOP in {fam['gemm_sm90']:.4f} device "
+                f"{by_kernel(fam) or 'not measured (no CUDA events)'}; "
+                f"host issue from an idle device {out['host_ms']:.3f} ms")
+            # launches counted over two calls: the profiler may miss the
+            # first kernel of its window, which leaves one family odd
+            counts = {}
+            device_profile(lambda: (fn(), fn()), counts)
+            port = {k: -(-v // 2) for k, v in counts.items() if k != OTHER}
+            out["port_launches"] = sum(port.values())
+            log(f"[3 kernels] {key} {info} bfloat16 port kernel launches a "
+                f"call: {out['port_launches']} {json.dumps(port)}")
+            if launches is not None and counts and \
+                    out["port_launches"] != launches:
+                raise AssertionError(f"{key}: {out['port_launches']} port "
+                                     f"launches a call, expected {launches}")
+            if gemm_flops and fam.get(gemm_family):
+                out["gemm_tflops"] = gemm_flops / fam[gemm_family] / 1e9
+                log(f"[3 kernels] {key} {info} products on {gemm_family}: "
+                    f"{gemm_flops:.4g} FLOP in {fam[gemm_family]:.4f} device "
                     f"ms = {out['gemm_tflops']:.1f} TFLOP/s effective")
+            if "gemm" in fam and gemm_family == "gemm_gather":
+                raise AssertionError(f"{key}: bf16 products on gemm.cu")
         return out
+
+    def graph_products(key, info, prods):
+        """The layer's bf16 products on the graph-layer GEMM alone, each
+        against its plain twin on the same operands, then all of them
+        timed beside ``F.linear`` (cuBLAS) on the same operands with the
+        gathered rows made beforehand: the products' library yardstick,
+        which the port never calls.  ``prods``: (segments, weight, bias,
+        act, out dtype) as the layer issues them."""
+        from isubgvqa_tpu_torch.ops import gemm as GM
+
+        flops = 0.0
+        for i, (segs, w, bias, act, odt) in enumerate(prods):
+            rows = segs[0][1] if segs[0][1] is not None else segs[0][0]
+            flops += 2.0 * rows.shape[0] * w.shape[0] * w.shape[1]
+            got = GM.gemm_gather(segs, w, bias, act, odt)
+            want = GM.gemm_gather_plain(segs, w, bias, act, odt)
+            err, _ = compare(f"{key} product {i} ({len(segs)} segments)",
+                             (got,), (want,), GATHER_TOL[str(odt)[6:]])
+            log(f"[3 kernels] {key} {info} product {i}: {len(segs)} "
+                f"segment(s), {sum(int(x is not None) for _, x in segs)} "
+                f"gathered, [{rows.shape[0]}, {w.shape[1]}] x "
+                f"[{w.shape[1]}, {w.shape[0]}] -> {str(odt)[6:]}: max abs "
+                f"{err:.3g} against the plain twin")
+        dense = [(GM.gather_segments(segs), w,
+                  None if b is None else b.to(torch.bfloat16))
+                 for segs, w, b, _, _ in prods]
+        ms = time_ms(lambda: [GM.gemm_gather(*p) for p in prods])
+        lib_ms = time_ms(lambda: [F.linear(*d) for d in dense])
+        log(f"[3 kernels] {key} {info} bf16 products alone: graph-layer "
+            f"GEMM {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), F.linear "
+            f"(cuBLAS) on the same operands {lib_ms:.4f} ms "
+            f"({flops / lib_ms / 1e9:.1f} TFLOP/s), factor "
+            f"{ms / lib_ms:.3f}")
+        return dict(products_ms=ms, products_cublas_ms=lib_ms,
+                    products_factor=ms / lib_ms, products_flops=flops,
+                    products_tflops=flops / ms / 1e9)
 
     def layer_library(key, info, fn, library):
         """The port's layer without the final LayerNorm beside the one
@@ -302,12 +367,30 @@ def phase_kernels(model, device):
             ins = (0.5 * torch.randn(GRAPH_B, c, device=device)).to(dtype)
             gate = torch.ones(GRAPH_B, n, 1, device=device, dtype=dtype)
             args = (h, h, ins, gate, src, dst, em, nm, ea, gp)
+            rn, re_ = GRAPH_B * n, GRAPH_B * e    # every row, padding counted
+            hc = heads * c
             r = record("fused_gat_layer", f"B={GRAPH_B} N={n} E={e}", dtype,
                        lambda: G.fused_gat_layer(*args, fuse_instr=True),
                        lambda: G.fused_gat_layer_plain(*args, fuse_instr=True),
                        flops=G.gat_layer_flops(nv, ev, c, heads, True),
                        inputs=(h, ins, gate, src, dst, em, nm, ea, gp),
-                       outputs=(h, torch.empty(GRAPH_B, e, heads)))
+                       outputs=(h, torch.empty(GRAPH_B, e, heads)),
+                       gemm_flops=2.0 * (rn * c * 2 * hc + re_ * c * hc
+                                         + rn * hc * hc // 2
+                                         + rn * hc // 2 * c),
+                       gemm_family="gemm_gather", launches=7)
+            if dtype == torch.bfloat16 and (n, e) == GRAPH_BUCKETS[-1]:
+                bf = torch.bfloat16
+                w_lr, b_lr = G.stacked_lr(gp)
+                conv = torch.randn(rn, hc, device=device).to(bf)
+                q = torch.randn(rn, hc // 2, device=device).to(bf)
+                r.update(graph_products(
+                    "fused_gat_layer", f"B={GRAPH_B} N={n} E={e}",
+                    [([(h.reshape(rn, c), None)], w_lr, b_lr, None, bf),
+                     ([(ea.reshape(re_, c), None)], gp["we"], None, None, bf),
+                     ([(conv, None)], gp["w1"], gp["b1"], "gelu", bf),
+                     ([(q, None)], gp["w2"], gp["b2"], "gelu",
+                      torch.float32)]))
             entries[("fused_gat_layer", dtype)] = r
             if n == 32:   # the masked layer's path: a sampled gate, no fusion
                 xf = torch.nn.functional.gelu(h * ins[:, None, :])
@@ -323,7 +406,27 @@ def phase_kernels(model, device):
                        lambda: M.fused_metalayer(*margs),
                        lambda: M.fused_metalayer_plain(*margs),
                        flops=M.metalayer_flops(nv, ev, c),
-                       inputs=margs, outputs=(h, ea))
+                       inputs=margs, outputs=(h, ea),
+                       gemm_flops=2.0 * c * c * (7 * re_ + 3 * rn),
+                       gemm_family="gemm_gather", launches=9)
+            if dtype == torch.bfloat16 and (n, e) == GRAPH_BUCKETS[-1]:
+                # the edge MLP's three segments, two gathered by the
+                # graphs' own row index (-1 on padding edges)
+                xt, et = h.reshape(rn, c), ea.reshape(re_, c)
+                gs, gd = M.graph_index(src, dst, em, n)
+                o1 = torch.randn(rn, c, device=device).to(torch.bfloat16)
+                bf, f32 = torch.bfloat16, torch.float32
+                r.update(graph_products(
+                    "fused_metalayer", f"B={GRAPH_B} N={n} E={e}",
+                    [([(xt, gs), (xt, gd), (et, None)], mp["ew1"], mp["eb1"],
+                      "gelu", bf),
+                     ([(et, None)], mp["ew2"], mp["eb2"], None, bf),
+                     ([(xt, gs), (et, None)], mp["n1w1"], mp["n1b1"], "gelu",
+                      bf),
+                     ([(et, None)], mp["n1w2"], mp["n1b2"], None, f32),
+                     ([(xt, None), (o1, None)], mp["n2w1"], mp["n2b1"],
+                      "gelu", bf),
+                     ([(o1, None)], mp["n2w2"], mp["n2b2"], None, f32)]))
             entries[("fused_metalayer", dtype)] = r
         for l in TEXT_LENS:
             x = torch.randn(TEXT_B, l, 512, device=device).to(dtype)
@@ -436,10 +539,11 @@ def phase_serving():
     return pred, ds, counts
 
 
-def device_profile(fn):
+def device_profile(fn, launches=None):
     """Run ``fn`` once under torch.profiler (CUPTI); returns the host wall
     time in ms and the device time in ms by kernel family (the port's
-    kernels by name, everything else as "other (PyTorch)")."""
+    kernels by name, everything else as "other (PyTorch)"); ``launches``,
+    a dict, receives the count of device events by family."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -453,19 +557,25 @@ def device_profile(fn):
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA") \
                 and ev.device_time_total > 0:
-            fam = next((k for k in KERNEL_FAMILIES if k in ev.name),
-                       "other (PyTorch)")
+            fam = next((k for k in KERNEL_FAMILIES if k in ev.name), OTHER)
             families[fam] = families.get(fam, 0.0) + ev.device_time_total / 1e3
+            if launches is not None:
+                launches[fam] = launches.get(fam, 0) + 1
     return wall_ms, families
 
 
 # the port's kernels by name, the most specific first
-KERNEL_FAMILIES = ("gemm_any", "gemm_sm90", "gemm", "reduce_rows", "colsum",
+KERNEL_FAMILIES = ("gemm_any", "gemm_sm90", "gemm_gather", "gemm",
+                   "reduce_rows", "colsum",
                    "gat_edge_bwd", "gat_edge", "graph_norm_bwd", "graph_norm",
+                   "graph_index",
                    "attention_bwd", "attention_mma", "attention", "ln_bwd",
                    "residual_ln",
                    "relu_bwd", "gelu_bwd", "scatter_mean_bwd", "scatter_mean",
                    "scatter_rows", "instr_gelu")
+
+
+OTHER = "other (PyTorch)"
 
 
 def by_kernel(families) -> str:
@@ -547,13 +657,13 @@ def phase_whole_forward(pred, ds):
 
 
 KERNELS = {
-    "fused_gat_layer": ("isubgvqa_tpu_torch/csrc/gat_kernel.cu",
+    "fused_gat_layer": ("isubgvqa_tpu_torch/csrc/gemm_gather_sm90.cu",
                         "isubgvqa_tpu/ops/pallas/gat_kernel.py:229"),
     "fused_encoder_layer": ("isubgvqa_tpu_torch/csrc/gemm_sm90.cu",
                             "isubgvqa_tpu/ops/pallas/text_kernel.py:255"),
     "fused_decoder_layer": ("isubgvqa_tpu_torch/csrc/gemm_sm90.cu",
                             "isubgvqa_tpu/ops/pallas/text_kernel.py:387"),
-    "fused_metalayer": ("isubgvqa_tpu_torch/csrc/metalayer_kernel.cu",
+    "fused_metalayer": ("isubgvqa_tpu_torch/csrc/gemm_gather_sm90.cu",
                         "isubgvqa_tpu/ops/pallas/metalayer_kernel.py:143"),
     "fused_gatconv": ("isubgvqa_tpu_torch/csrc/gat_train.cu",
                       "isubgvqa_tpu/ops/pallas/gat_train.py:484"),
@@ -563,6 +673,13 @@ KERNELS = {
                                   "isubgvqa_tpu/ops/pallas/text_train.py:622"),
     "fused_decoder_layer_train": ("isubgvqa_tpu_torch/csrc/text_train.cu",
                                   "isubgvqa_tpu/ops/pallas/text_train.py:742"),
+}
+
+# The eval graph layers' other sources (their first is the GEMM's).
+GRAPH_SOURCES = {
+    "fused_gat_layer": ["isubgvqa_tpu_torch/csrc/gat_kernel.cu",
+                        "isubgvqa_tpu_torch/csrc/metalayer_kernel.cu"],
+    "fused_metalayer": ["isubgvqa_tpu_torch/csrc/metalayer_kernel.cu"],
 }
 
 # The one PyTorch call that computes each text layer (``library_ms``);
@@ -758,6 +875,49 @@ def phase_train_kernels(model, device):
             raise AssertionError(f"backward GEMM error {max(errs):.3g} "
                                  f"> 4e-6")
 
+    def ffn_flips(info, x, km, masks, params):
+        """Where the f32 encoder layer's gradients part from the plain
+        version's: the FFN pre-activations whose sign differs between the
+        kernel's forward and the plain one (on the kept units), and
+        linear1's weight gradient error over all its rows (one row an FFN
+        unit) and over the rows that hold no flip, from one cotangent."""
+        from isubgvqa_tpu_torch.ops.text_kernel import (
+            _mul, encoder_launch, ln_plain, masks_at, mha_plain)
+
+        ps = T.ship_params(params, x.dtype)
+        with torch.no_grad():
+            _, saved = encoder_launch(x, km, ps, 8, None, masks, save=True)
+            m = masks_at(masks, x.dtype)
+            xf = x.float()
+            attn = mha_plain(xf, xf, km, ps["in_w"], ps["in_b"], ps["out_w"],
+                             ps["out_b"], 8, x.dtype, m.get("attn"))
+            x1 = ln_plain(xf + _mul(attn, m.get("post_attn")), ps["n1s"],
+                          ps["n1b"])
+            pre = (x1 @ ps["w1"].t() + ps["b1"]).reshape(-1, ps["w1"].shape[0])
+        kept = masks["ffn"].reshape(pre.shape) > 0
+        flips = ((saved["hid"].float() > 0) != (pre > 0)) & kept
+        units = flips.any(0)
+        gen = torch.Generator(device=device).manual_seed(5)
+        cot = torch.randn(x.shape, device=device, generator=gen)
+        w1 = {}
+        for name, f in (("kernel", T.fused_encoder_layer_train),
+                        ("plain", T.fused_encoder_layer_train_plain)):
+            p = masters(params)
+            w1[name] = torch.autograd.grad(f(x, km, masks, p, 8), p["w1"],
+                                           cot)[0]
+        rms = lambda t: t.square().mean().sqrt().item()
+        diff = w1["kernel"] - w1["plain"]
+        whole = rms(diff) / rms(w1["plain"])
+        clean = rms(diff[~units]) / rms(w1["plain"][~units])
+        log(f"[7 train kernels] fused_encoder_layer_train {info} float32 "
+            f"FFN: {int(flips.sum())} of {int(kept.sum())} kept "
+            f"pre-activations change sign between kernel and plain forward, "
+            f"in {int(units.sum())} of {units.numel()} units; linear1 "
+            f"gradient RMS error of RMS {whole:.3g} over all rows, "
+            f"{clean:.3g} over the {int((~units).sum())} rows with no flip")
+        return dict(ffn_flips=int(flips.sum()), ffn_flip_units=int(units.sum()),
+                    w1_grad_err=whole, w1_grad_err_unflipped=clean)
+
     gemm_accuracy()
     gp = model.gat_seq.layer_params(3)
     conv_p = {k: gp[k] for k in G.CONV_KEYS}
@@ -812,6 +972,8 @@ def phase_train_kernels(model, device):
                        gemm_flops=4.0 * b * l * (4 * d * d + 2 * d * 2048))
             r["attention_ms"], r["sdpa_ms"] = core_fwd_bwd("self", l, l,
                                                            dtype, km)
+            if dtype == torch.float32 and largest:
+                r.update(ffn_flips(info, x, km, masks, enc_p))
             if dtype == torch.bfloat16:
                 r.update(library_fwd_bwd(
                     "fused_encoder_layer_train", info,
@@ -1089,6 +1251,14 @@ def main() -> int:
                        layer_ms=r["layer_ms"], factor=r["factor"],
                        gemm_tflops=r.get("gemm_tflops"),
                        device_ms=r.get("device_ms"))
+        else:          # the bf16 graph layer: the graph-layer GEMM
+            row.update(sources=[src] + GRAPH_SOURCES[k],
+                       gemm_tflops=r.get("gemm_tflops"),
+                       device_ms=r.get("device_ms"),
+                       port_launches_per_call=r.get("port_launches"),
+                       **{f: r.get(f) for f in (
+                           "products_ms", "products_tflops",
+                           "products_cublas_ms", "products_factor")})
         line.append(row)
     log(f"train step median {step_ms:.1f} ms at batch {TRAIN_B}")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,6 +1,7 @@
 // Masked GATv2 layer kernels: instruction gating and the edge half.
 //
-// With the shared GEMM (gemm.cu: x_l, x_r, lin_edge and the x_proj MLP)
+// With the graph-layer GEMM (gemm_gather_sm90.cu for bf16, gemm.cu for
+// f32: x_l | x_r, lin_edge and the x_proj MLP)
 // and the GraphNorm kernel (metalayer_kernel.cu: instruction SDP,
 // GraphNorm, residual) they replace the Pallas kernel
 // isubgvqa_tpu/ops/pallas/gat_kernel.py:fused_gat_layer (_kernel).
@@ -50,7 +51,9 @@ __global__ void instr_gelu_kernel(const T* __restrict__ h,
   }
 }
 
-// TX: x_l / x_r, TE: projected edges, TC: conv.  The eval layer runs
+// TX: x_l / x_r (rows of pitch ldx: the eval layer's x_l and x_r are the
+// two column halves of one stacked product), TE: projected edges, TC:
+// conv.  The eval layer runs
 // all three at the model dtype and rounds each weighted message to it
 // (kRound); the training conv (gat_train.cu's forward) reads f32 x_l /
 // x_r and writes f32 conv without rounding, as the Pallas training
@@ -66,7 +69,8 @@ __global__ void gat_edge_kernel(const TX* __restrict__ xl,
                                 const float* __restrict__ att,
                                 const float* __restrict__ cbias,
                                 float* __restrict__ alpha,
-                                TC* __restrict__ conv, int N, int E, int C) {
+                                TC* __restrict__ conv, int N, int E, int C,
+                                int ldx) {
   extern __shared__ float sm[];
   float* lg = sm;                       // [E] logits
   float* wg = lg + E;                   // [E] alpha * egate
@@ -106,8 +110,8 @@ __global__ void gat_edge_kernel(const TX* __restrict__ xl,
       continue;
     }
     const float g = eg[e];
-    const TX* xs = xl + (nb + sS[e]) * HC + h0;
-    const TX* xd = xr + (nb + d) * HC + h0;
+    const TX* xs = xl + (nb + sS[e]) * ldx + h0;
+    const TX* xd = xr + (nb + d) * ldx + h0;
     const TE* pe = ep + (eb + e) * HC + h0;
     float acc = 0.f;
 #pragma unroll 4
@@ -152,7 +156,7 @@ __global__ void gat_edge_kernel(const TX* __restrict__ xl,
       float acc = 0.f;
       for (int q = off[n]; q < off[n + 1]; ++q) {
         const int e = lst[q];
-        const float w = to_f(xl[(nb + sS[e]) * HC + j]) * wg[e];
+        const float w = to_f(xl[(nb + sS[e]) * ldx + j]) * wg[e];
         acc += kRound ? round_to<TC>(w) : w;
       }
       conv[(nb + n) * HC + j] = from_f<TC>(acc + cbias[j]);
@@ -188,11 +192,13 @@ ISG_API int isg_instr_gelu(const void* h, const void* instr, void* xf, int dt,
   return (int)cudaGetLastError();
 }
 
-ISG_API int isg_gat_edge(const void* xl, const void* xr, const void* ep,
-                         int dt, const float* gate, const int* src,
-                         const int* dst, const float* emask, const float* att,
-                         const float* cbias, float* alpha, void* conv, int B,
-                         int N, int E, int H, int C, void* stream) {
+// x_l / x_r rows of pitch ldx elements.
+ISG_API int isg_gat_edge(const void* xl, const void* xr, int ldx,
+                         const void* ep, int dt, const float* gate,
+                         const int* src, const int* dst, const float* emask,
+                         const float* att, const float* cbias, float* alpha,
+                         void* conv, int B, int N, int E, int H, int C,
+                         void* stream) {
   const size_t smem = gat_edge_smem(N, E);
   dim3 grid(H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -201,7 +207,7 @@ ISG_API int isg_gat_edge(const void* xl, const void* xr, const void* ep,
       gat_edge_kernel<T, T, T, true><<<grid, gat_edge_threads(C), smem, st>>>(
           static_cast<const T*>(xl), static_cast<const T*>(xr),
           static_cast<const T*>(ep), gate, src, dst, emask, att, cbias, alpha,
-          static_cast<T*>(conv), N, E, C));
+          static_cast<T*>(conv), N, E, C, ldx));
   return (int)cudaGetLastError();
 }
 
@@ -222,6 +228,6 @@ ISG_API int isg_gat_edge_train(const float* xl, const float* xr,
       gat_edge_kernel<float, TE, float, false>
           <<<grid, gat_edge_threads(C), smem, st>>>(
               xl, xr, static_cast<const TE*>(ep), gate, src, dst, emask, att,
-              cbias, alpha, conv, N, E, C));
+              cbias, alpha, conv, N, E, C, H * C));
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-// Shared tiled GEMM for the port's fused layers.
+// Shared tiled GEMM for the port's f32 products.
 //
 // C[m, n] = act( sum_s  A_s'[m, :] . W[n, koff_s : koff_s + K_s]  + bias[n] )
-//           * row_scale[m]
+//           * emul[m, n] * row_scale[m]
 //
 // * W is a torch Linear weight, row-major [N, ldw] ("out, in"); the A
 //   segments are a virtual concatenation along K, so the MetaLayer's
@@ -11,22 +11,17 @@
 //   tensor, or a zero row when idx[m] < 0.  That is x[src] / x[dst] of
 //   the TPU kernels' one-hot incidence matmuls, with masked edges reading
 //   zeros exactly as the masked one-hot rows do.
-// * A comes at W's dtype (the wrapper rounds it, as flax
-//   Dense(dtype=bf16) rounds its operands); products and sums are f32.
+// * A and W are f32 (the wrapper widens a bf16 operand, which is exact).
 //
 // Bound on the H100: at the port's shapes (K = 300..2048) these are
-// operation-bound products, so both weight types go to the tensor cores,
-// each through a shared-memory tile fed by a three-stage cp.async ring
-// (the loads of the next tiles overlap the products on this one):
-// * bf16: a 128x64x32 tile, four warps of 64x32 each issuing mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate).  The bf16 products are exact in
-//   f32, so the result differs from the plain version only by summation
-//   order.
-// * f32 (the training GAT conv's x_l / x_r, f32 models, the card's f32
-//   references): a 128x64x16 tile in the 3xTF32 form (tensor_core.cuh),
-//   which keeps f32-level accuracy on the TF32 tensor cores; with bf16
-//   operands (exact in TF32) it takes two products, not three.
-// wgmma tiles fed by TMA are later work.
+// operation-bound products, so they go to the tensor cores in the 3xTF32
+// form (tensor_core.cuh), which keeps f32-level accuracy on the TF32
+// tensor cores (the training GAT conv's x_l / x_r, f32 models, the card's
+// f32 references); with bf16 operands (exact in TF32) it takes two
+// products, not three.  A 128x64x16 tile is fed by a three-stage cp.async
+// ring (the loads of the next tiles overlap the products on this one).
+// The bf16 products are gemm_gather_sm90.cu's (graph layers) and
+// gemm_sm90.cu's (question stack).
 //
 #include "common.cuh"
 #include "tensor_core.cuh"
@@ -34,7 +29,7 @@
 namespace isg {
 
 struct Seg {
-  const void* a;
+  const float* a;
   const int* idx;
   int lda;
   int k;
@@ -118,7 +113,7 @@ gemm_tf32_kernel(Segs segs, const float* __restrict__ W, int ldw,
   };
   enter();
   auto load_next = [&](int stage) {
-    const float* A = static_cast<const float*>(cur.a);
+    const float* A = cur.a;
     const int k = tile * FBK + lc;
     const bool kin = k < cur.k;
 #pragma unroll
@@ -205,163 +200,6 @@ gemm_tf32_kernel(Segs segs, const float* __restrict__ W, int ldw,
     }
 }
 
-// ---------------------------------------------------------------- bf16
-//
-// A and W both bf16.  Each 32-wide K tile of A (128 rows, gathered) and
-// W (64 rows) is copied into shared memory by cp.async in 8-byte chunks
-// (4 bf16: rows need only 8-byte alignment, which a 300-wide row has),
-// three tiles in flight, so the loads of the next tiles overlap the
-// tensor-core work on this one.  A chunk past K, past the last row or of
-// a gathered row with a negative index is zero-filled by the copy.
-
-constexpr int TBM = 128, TBN = 64, TBK = 32, TNT = 128, STAGES = 3;
-constexpr int TLD = TBK + 8;   // row pitch in bf16: conflict-free fragment reads
-constexpr int CHUNK = 4;       // bf16 per 8-byte copy
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <typename TC, bool kExtra>
-__global__ void __launch_bounds__(TNT)
-gemm_bf16_kernel(Segs segs, const __nv_bfloat16* __restrict__ W, int ldw,
-                 const float* __restrict__ bias,
-                 const float* __restrict__ row_scale,
-                 const float* __restrict__ emul, float* __restrict__ pre,
-                 TC* __restrict__ C, int ldc, int M, int N, int act) {
-  __shared__ __align__(16) __nv_bfloat16 As[STAGES][TBM][TLD];
-  __shared__ __align__(16) __nv_bfloat16 Ws[STAGES][TBN][TLD];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;       // warp tile 64 x 32
-  const int g = lane / 4, t4 = lane % 4;        // mma fragment coordinates
-  const int lc = (tid % (TBK / CHUNK)) * CHUNK; // this thread's load column
-  const int lr = tid / (TBK / CHUNK);           // ... and first load row
-  constexpr int ROW_STEP = TNT / (TBK / CHUNK); // 16
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-
-  int ntiles = 0;
-#pragma unroll
-  for (int s = 0; s < 3; ++s)
-    if (s < segs.n) ntiles += (segs.s[s].k + TBK - 1) / TBK;
-
-  // The copy stream walks the tiles of segment 0, then 1, then 2.  The
-  // element offsets of this thread's rows are worked out once per
-  // segment (-1: a zero row), so a copy costs one add; the wrapper keeps
-  // every operand under 2^31 elements.
-  constexpr int AR = TBM / ROW_STEP, WR = TBN / ROW_STEP;
-  int a_off[AR], w_off[WR];
-#pragma unroll
-  for (int i = 0; i < WR; ++i) {
-    const int n = n0 + lr + i * ROW_STEP;
-    w_off[i] = n < N ? n * ldw : -1;
-  }
-  Seg cur = segs.s[0];
-  int seg = 0, tile = 0, koff = 0;
-  auto enter = [&]() {
-#pragma unroll
-    for (int i = 0; i < AR; ++i) {
-      const int m = m0 + lr + i * ROW_STEP;
-      const int row = m < M ? (cur.idx ? cur.idx[m] : m) : -1;
-      a_off[i] = row >= 0 ? row * cur.lda : -1;
-    }
-  };
-  enter();
-  auto load_next = [&](int stage) {
-    const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(cur.a);
-    const int k = tile * TBK + lc;
-    const bool kin = k < cur.k;
-#pragma unroll
-    for (int i = 0; i < AR; ++i) {
-      const bool ok = kin && a_off[i] >= 0;
-      cp_async8(&As[stage][lr + i * ROW_STEP][lc], ok ? A + a_off[i] + k : A,
-                ok);
-    }
-#pragma unroll
-    for (int i = 0; i < WR; ++i) {
-      const bool ok = kin && w_off[i] >= 0;
-      cp_async8(&Ws[stage][lr + i * ROW_STEP][lc],
-                ok ? W + w_off[i] + koff + k : W, ok);
-    }
-    if (++tile * TBK >= cur.k && seg + 1 < segs.n) {
-      koff += cur.k;
-      tile = 0;
-      cur = ++seg == 1 ? segs.s[1] : segs.s[2];
-      enter();
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < ntiles) load_next(t);
-    cp_async_commit();
-  }
-  for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<STAGES - 2>();   // tile t has landed
-    __syncthreads();               // ... for every thread; t - 1 is consumed
-    const int tn = t + STAGES - 1;
-    if (tn < ntiles) load_next(tn % STAGES);
-    cp_async_commit();
-    const int st = t % STAGES;
-#pragma unroll
-    for (int ks = 0; ks < TBK; ks += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = wm * 64 + i * 16 + g;
-        a[i][0] = ld_pair(&As[st][row][ks + t4 * 2]);
-        a[i][1] = ld_pair(&As[st][row + 8][ks + t4 * 2]);
-        a[i][2] = ld_pair(&As[st][row][ks + t4 * 2 + 8]);
-        a[i][3] = ld_pair(&As[st][row + 8][ks + t4 * 2 + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn * 32 + j * 8 + g;
-        b[j][0] = ld_pair(&Ws[st][n][ks + t4 * 2]);
-        b[j][1] = ld_pair(&Ws[st][n][ks + t4 * 2 + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 64 + i * 16 + g + half * 8;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int n = n0 + wn * 32 + j * 8 + t4 * 2 + q;
-          if (n >= N) continue;
-          epilogue<TC, kExtra>(acc[i][j][half * 2 + q], m, n, N, bias,
-                               row_scale, emul, pre, C, ldc, act);
-        }
-    }
-}
-
 // out[m, n] (+)= sum_z part[z, m, n], z in order.
 __global__ void reduce_rows_kernel(const float* __restrict__ part,
                                    float* __restrict__ out, int ldo, int M,
@@ -395,61 +233,42 @@ __global__ void colsum_kernel(const float* __restrict__ X, int ldx, int M,
 
 using namespace isg;
 
-// act: 0 none, 1 exact GELU, 2 ReLU.  Dtype codes: 0 f32, 1 bf16.
-// emul [M, N] and pre [M, N] (f32) may be null.  a_exact: the f32
-// operands hold values exact in TF32 (bf16 activations), so the f32 path
-// drops its a_lo products.  Every segment's row
-// pitch and K width and the weight's pitch must be multiples of 4
-// elements, and the operands aligned to 4 elements (chunked copies).
-ISG_API int isg_gemm(const void* a0, const int* i0, int lda0, int k0,
-                     const void* a1, const int* i1, int lda1, int k1,
-                     const void* a2, const int* i2, int lda2, int k2,
-                     int nseg, const void* w, int ldw, const float* bias,
+// act: 0 none, 1 exact GELU, 2 ReLU; c_dt: 0 f32, 1 bf16.  emul [M, N]
+// and pre [M, N] (f32) may be null.  a_exact: the f32 operands hold
+// values exact in TF32 (bf16 activations), so the products drop their
+// a_lo terms.  Every segment's row pitch and K width and the weight's
+// pitch must be multiples of 4 elements, and the operands 16-byte aligned
+// (chunked copies).
+ISG_API int isg_gemm(const float* a0, const int* i0, int lda0, int k0,
+                     const float* a1, const int* i1, int lda1, int k1,
+                     const float* a2, const int* i2, int lda2, int k2,
+                     int nseg, const float* w, int ldw, const float* bias,
                      const float* row_scale, const float* emul, float* pre,
-                     void* c, int ldc, int M, int N,
-                     int act, int a_dt, int w_dt, int c_dt, int a_exact,
-                     void* stream) {
+                     void* c, int ldc, int M, int N, int act, int c_dt,
+                     int a_exact, void* stream) {
   Segs segs;
   segs.s[0] = Seg{a0, i0, lda0, k0};
   segs.s[1] = Seg{a1, i1, lda1, k1};
   segs.s[2] = Seg{a2, i2, lda2, k2};
   segs.n = nseg;
-  if (a_dt != w_dt) return (int)cudaErrorInvalidValue;
-  const uintptr_t align = w_dt == 1 ? 8 : 16;   // bytes of 4 elements
-  if (ldw % 4 || reinterpret_cast<uintptr_t>(w) % align)
+  if (ldw % 4 || reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorInvalidValue;
   for (int s = 0; s < nseg; ++s)
     if (segs.s[s].lda % 4 || segs.s[s].k % 4 ||
-        reinterpret_cast<uintptr_t>(segs.s[s].a) % align)
+        reinterpret_cast<uintptr_t>(segs.s[s].a) % 16)
       return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w_dt == 1) {
-    dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-    const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-    if (emul || pre)
-      ISG_WITH_T(c_dt, TC,
-          gemm_bf16_kernel<TC, true><<<grid, TNT, 0, st>>>(
-              segs, wb, ldw, bias, row_scale, emul, pre,
-              static_cast<TC*>(c), ldc, M, N, act));
-    else
-      ISG_WITH_T(c_dt, TC,
-          gemm_bf16_kernel<TC, false><<<grid, TNT, 0, st>>>(
-              segs, wb, ldw, bias, row_scale, nullptr, nullptr,
-              static_cast<TC*>(c), ldc, M, N, act));
-  } else {
-    dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-    const float* wf = static_cast<const float*>(w);
-    if (emul || pre)
-      ISG_WITH_T(c_dt, TC,
-          gemm_tf32_kernel<TC, true><<<grid, FNT, 0, st>>>(
-              segs, wf, ldw, bias, row_scale, emul, pre,
-              static_cast<TC*>(c), ldc, M, N, act, a_exact != 0));
-    else
-      ISG_WITH_T(c_dt, TC,
-          gemm_tf32_kernel<TC, false><<<grid, FNT, 0, st>>>(
-              segs, wf, ldw, bias, row_scale, nullptr, nullptr,
-              static_cast<TC*>(c), ldc, M, N, act, a_exact != 0));
-  }
+  dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
+  if (emul || pre)
+    ISG_WITH_T(c_dt, TC,
+        gemm_tf32_kernel<TC, true><<<grid, FNT, 0, st>>>(
+            segs, w, ldw, bias, row_scale, emul, pre, static_cast<TC*>(c),
+            ldc, M, N, act, a_exact != 0));
+  else
+    ISG_WITH_T(c_dt, TC,
+        gemm_tf32_kernel<TC, false><<<grid, FNT, 0, st>>>(
+            segs, w, ldw, bias, row_scale, nullptr, nullptr,
+            static_cast<TC*>(c), ldc, M, N, act, a_exact != 0));
   return (int)cudaGetLastError();
 }
 

@@ -38,14 +38,7 @@
 // product never goes through device memory, and a LayerNorm costs no
 // launch of its own.
 //
-// Tensor maps are built on the host with cuTensorMapEncodeTiled (reached
-// through the runtime's driver entry point, no -lcuda) and cached by
-// (pointer, shape, pitch, box): a map depends on nothing else, so a cached
-// map is right whatever tensor now lives at that address.
-
-#include <array>
-#include <map>
-#include <mutex>
+// Tensor maps come from hopper.cuh:tensor_map (built on the host, cached).
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -82,10 +75,6 @@ struct Sm90Tile {
   // ring, full + empty barriers, alignment
   static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
 };
-
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");   // warps 0-7
-}
 
 // Plain epilogue from the staged tile: the 256 consumer threads walk it in
 // chunks of 4 columns, a warp over 128 consecutive columns of a row, so
@@ -218,62 +207,6 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
 }
 
 // ------------------------------------------------------------ host side
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult q;
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault);
-#endif
-    fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// The map of a row-major bf16 [rows, cols] matrix of row pitch `ld`
-// elements, read in boxes of box_rows x 64 with the 128-byte swizzle.
-static int tensor_map(const void* ptr, int rows, int cols, int ld,
-                      int box_rows, CUtensorMap* out) {
-  static std::mutex mu;
-  static std::map<std::array<uint64_t, 5>, CUtensorMap> cache;
-  const std::array<uint64_t, 5> key = {reinterpret_cast<uint64_t>(ptr),
-                                       (uint64_t)rows, (uint64_t)cols,
-                                       (uint64_t)ld, (uint64_t)box_rows};
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = cache.find(key);
-  if (it != cache.end()) {
-    *out = it->second;
-    return 0;
-  }
-  EncodeTiled enc = encode_fn();
-  if (!enc) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(ptr), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  if (cache.size() >= 4096) cache.clear();
-  cache[key] = *out;
-  return 0;
-}
 
 static bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;

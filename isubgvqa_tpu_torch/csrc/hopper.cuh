@@ -1,16 +1,22 @@
-// Hopper building blocks of the sm_90a kernels (gemm_sm90.cu): TMA
-// tile loads into shared memory, mbarriers that report their arrival,
-// warpgroup register hand-over (setmaxnreg), and wgmma with both operands
-// read from shared memory through matrix descriptors.
+// Hopper building blocks of the sm_90a kernels (gemm_sm90.cu,
+// gemm_gather_sm90.cu): TMA tile loads and cp.async copies into shared
+// memory, mbarriers that report their arrival, warpgroup register
+// hand-over (setmaxnreg), and wgmma with both operands read from shared
+// memory through matrix descriptors.
 //
 // Operand layout.  Every tile is K-major bf16, 64 values (128 bytes) per
-// row, written by TMA with the 128-byte swizzle: within each group of 8
+// row, written by TMA (or by cp.async at the same addresses) with the
+// 128-byte swizzle: within each group of 8
 // rows (1024 bytes) the 16-byte chunks of row r sit at chunk c ^ (r % 8).
 // The wgmma descriptor names the same swizzle (layout type 1), a stride
 // of 1024 bytes between 8-row groups, and the tile's start; the 16-deep
 // k steps inside the 64-wide row advance the start by 32 bytes, which the
 // hardware swizzles like the TMA did.  Tiles start 1024-byte aligned.
 #pragma once
+
+#include <array>
+#include <map>
+#include <mutex>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -92,6 +98,12 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
   d |= uint64_t(1024 >> 4) << 32;          // 8-row group stride
   d |= uint64_t(1) << 62;                  // 128-byte swizzle
   return d;
+}
+
+// Named barrier 1 over the two consumer warpgroups (warps 0-7), which
+// the producer warps never reach.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -180,6 +192,128 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 152] (+)= A[64 x 16] . B[152 x 16]^T, both from shared memory
+// (K-major, 128-byte swizzle), f32 sums in d (76 registers a thread).
+__device__ __forceinline__ void wgmma_m64n152k16(float (&d)[76], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %78, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n152k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75 "
+      "}, %76, %77, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// cp.async of `bytes` (8 or 16) from global memory into shared memory at
+// `dst`, zero-filled where `valid` is false (src-size 0: nothing is read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src,
+                                               bool valid) {
+  static_assert(BYTES == 8 || BYTES == 16, "cp.async takes 8 or 16 bytes");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(valid ? 8 : 0)
+                 : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread has issued so far has
+// landed; the arrival counts against the count the barrier was made with.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// Order this thread's view of shared memory written through the generic
+// proxy (st.shared, cp.async) before the async proxy (wgmma) reads it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ host side
+//
+// Tensor maps are built with cuTensorMapEncodeTiled (reached through the
+// runtime's driver entry point, no -lcuda) and cached by (pointer, shape,
+// pitch, box): a map depends on nothing else, so a cached map is right
+// whatever tensor now lives at that address.
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult q;
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault);
+#endif
+    fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// The map of a row-major bf16 [rows, cols] matrix of row pitch `ld`
+// elements, read in boxes of box_rows x 64 with the 128-byte swizzle.
+inline int tensor_map(const void* ptr, int rows, int cols, int ld,
+                      int box_rows, CUtensorMap* out) {
+  static std::mutex mu;
+  static std::map<std::array<uint64_t, 5>, CUtensorMap> cache;
+  const std::array<uint64_t, 5> key = {reinterpret_cast<uint64_t>(ptr),
+                                       (uint64_t)rows, (uint64_t)cols,
+                                       (uint64_t)ld, (uint64_t)box_rows};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return 0;
+  }
+  EncodeTiled enc = encode_fn();
+  if (!enc) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  if (cache.size() >= 4096) cache.clear();
+  cache[key] = *out;
+  return 0;
 }
 
 }  // namespace isg

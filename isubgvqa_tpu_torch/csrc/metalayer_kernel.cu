@@ -1,6 +1,7 @@
 // Scene-graph MetaLayer kernels: mean aggregation and GraphNorm.
 //
-// With the shared GEMM (gemm.cu: the edge MLP on [x_src, x_dst, e] with
+// With the graph-layer GEMM (gemm_gather_sm90.cu for bf16, gemm.cu for
+// f32: the edge MLP on [x_src, x_dst, e] with
 // its [C, 3C] weight split by columns, node MLP1 on [x_src, e_out],
 // node MLP2 on [x, agg]) they replace the Pallas kernel
 // isubgvqa_tpu/ops/pallas/metalayer_kernel.py:fused_metalayer (_kernel).
@@ -11,6 +12,12 @@
 // sum is deterministic and needs no atomics (the TPU did it as a
 // one-hot matmul).  Degrees count valid incoming edges and are clamped
 // to >= 1.  Bound: bytes (each message read once).
+//
+// isg_graph_index: the gathers' row indices of the edge MLP and node
+// MLP1, src and dst into the flattened [B * N] node rows (-1, a zero row,
+// on padding edges and on an index outside the graph), and the edge mask
+// as f32, in one pass: one launch in place of a dozen elementwise ops on
+// the host's path to the first product.  Bound: bytes.
 //
 // isg_graph_norm: one block per graph.  GraphNorm over the graph's
 // valid nodes: mean scaled by alpha, eps 1e-5, then normed * mask * w
@@ -24,6 +31,22 @@
 namespace isg {
 
 constexpr int kSliceC = 64;
+
+__global__ void graph_index_kernel(const int* __restrict__ src,
+                                   const int* __restrict__ dst,
+                                   const bool* __restrict__ emask,
+                                   int* __restrict__ gidx,
+                                   float* __restrict__ emf, int E, int N,
+                                   long total) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < total;
+       i += (long)gridDim.x * blockDim.x) {
+    const int base = (int)(i / E) * N, s = src[i], d = dst[i];
+    const bool v = emask[i];
+    gidx[i] = v && s >= 0 && s < N ? base + s : -1;
+    gidx[total + i] = v && d >= 0 && d < N ? base + d : -1;
+    emf[i] = v ? 1.f : 0.f;
+  }
+}
 
 template <typename TO>
 __global__ void scatter_mean_kernel(const float* __restrict__ m,
@@ -139,6 +162,19 @@ __global__ void graph_norm_kernel(const float* __restrict__ p,
 using namespace isg;
 
 // agg[b, n, :] = sum of m over valid edges into n / max(deg, 1); m is f32.
+// gidx [2, B * E] int32 (src rows, then dst rows), emf [B * E] f32.
+ISG_API int isg_graph_index(const int* src, const int* dst, const bool* emask,
+                            int* gidx, float* emf, int B, int E, int N,
+                            void* stream) {
+  const long total = (long)B * E;
+  const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256
+                                                       : 1024);
+  if (total == 0) return 0;
+  graph_index_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, dst, emask, gidx, emf, E, N, total);
+  return (int)cudaGetLastError();
+}
+
 ISG_API int isg_scatter_mean(const float* m, const int* dst,
                              const float* emask, void* agg, int agg_dt, int B,
                              int N, int E, int C, void* stream) {

@@ -24,13 +24,6 @@
 
 namespace isg {
 
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 8 : 0));
-}
-
 // 16-byte copy of which the first `bytes` are read, the rest zero-filled
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int bytes) {

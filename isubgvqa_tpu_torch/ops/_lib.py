@@ -37,7 +37,9 @@ build_log: str = ""                       # nvcc output of the last build
 P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 _SIGNATURES = {
     "isg_gemm": [P, P, I, I] * 3 + [I, P, I, P, P, P, P, P, I, I, I, I, I,
-                                    I, I, I, P],
+                                    I, P],
+    "isg_gemm_gather": [P, P, I, I] * 3 + [I, P, I, P, P, P, P, P, I, I, I,
+                                           I, P],
     "isg_gemm_sm90": [P, I, P, I, P, P, P, I, I, I, I, I, P],
     "isg_gemm_ln_sm90": [P, I, P, I, P, P, I] + [P] * 8 + [I, I, I, I, F, P],
     "isg_gemm_any": [P, I, I, P, P, I, I, P, I, I, I, I, I, P, P, I, P],
@@ -53,13 +55,15 @@ _SIGNATURES = {
     "isg_ln_bwd": [P, I, P, P, P, P, P, P, I, I, I, F, P],
     "isg_relu_bwd": [P, P, I, P, P, L, P],
     "isg_scatter_mean": [P, P, P, P, I, I, I, I, I, P],
+    "isg_graph_index": [P, P, P, P, P, I, I, I, P],
     "isg_scatter_mean_bwd": [P, P, P, P, I, I, I, I, P],
     "isg_scatter_rows": [P, P, P, P, P, P, I, I, I, I, P],
     "isg_graph_norm": [P, P, P, P, I, P, P, P, P, I, I, I, I, F, P],
     "isg_graph_norm_bwd": [P, I, P, P, P, P, P, P, I, I, I, F, P],
     "isg_gelu_bwd": [P, P, P, L, P],
     "isg_instr_gelu": [P, P, P, I, I, I, I, P],
-    "isg_gat_edge": [P, P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "isg_gat_edge": [P, P, I, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                     P],
     "isg_gat_edge_train": [P, P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
                            P],
     "isg_gat_edge_bwd": [P, P, P, I] + [P] * 13 + [I] * 6 + [P],

@@ -7,15 +7,19 @@ Design on the H100, a fixed sequence of hand-written launches:
 
 1. with ``fuse_instr``: ``csrc/gat_kernel.cu:isg_instr_gelu``,
    ``xf = gelu(h * instr)``;
-2. shared GEMMs (``csrc/gemm.cu``): ``x_l``, ``x_r`` (with bias) and
-   the layer's lin_edge projection of the edge features, each rounded to
-   the model dtype as the Pallas kernel rounds them (``:124-140``);
+2. the graph-layer GEMM (:func:`.gemm.product`: for bf16
+   ``csrc/gemm_gather_sm90.cu``, wgmma fed by cp.async; for f32
+   ``csrc/gemm.cu``'s 3xTF32 form): ``x_l`` and ``x_r`` as one product
+   against the stacked ``[2 H*C, C]`` weight and bias (``xf`` read once;
+   each column's sum is unchanged), then the layer's lin_edge projection
+   of the edge features, each rounded to the model dtype as the Pallas
+   kernel rounds them (``:124-140``);
 3. ``isg_gat_edge``, one block per graph: edge gate, leaky-ReLU message,
    4-head logits, per-destination softmax, ``alpha``, and the
    aggregation ``conv = sum x_l[src] * alpha * egate + bias`` over
    incoming-edge lists built in shared memory (edges are not sorted by
    destination);
-4. shared GEMMs for ``x_proj`` 1200 -> 600 -> 300, GELU after both;
+4. the same GEMM for ``x_proj`` 1200 -> 600 -> 300, GELU after both;
 5. ``csrc/metalayer_kernel.cu:isg_graph_norm``: the instruction SDP
    softmax over valid nodes, GraphNorm and the residual.
 
@@ -28,6 +32,7 @@ operation-bound at the main path's shapes; the edge kernel itself is
 bound by reading x_l, x_r and the projected edges once per edge.  The
 ``[B, E, H*C]`` projected edges do go through device memory here (the
 TPU kept them in VMEM); fusing them into the edge kernel is later work.
+Seven launches a call (six without ``fuse_instr``).
 
 On a CPU tensor the wrapper runs :func:`fused_gat_layer_plain`; on a
 CUDA tensor it launches the kernels or raises.
@@ -39,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _lib
-from .gemm import gemm, linear_plain
+from .gemm import cached, linear_plain, product
 from .metalayer_kernel import GN_EPS, NEG, graph_norm_plain
 
 KEYS = ("wl", "bl", "wr", "br", "we", "att", "cbias", "w1", "b1", "w2",
@@ -95,6 +100,15 @@ def fused_gat_layer_plain(h, xf, instr, gate, src, dst, edge_mask, node_mask,
     return out.to(dtype), alpha
 
 
+def stacked_lr(params):
+    """``(weight [2 H*C, C], f32 bias [2 H*C])``: x_l's over x_r's, made
+    once while the four tensors stand (:func:`.gemm.cached`)."""
+    wl, wr, bl, br = (params[k] for k in ("wl", "wr", "bl", "br"))
+    return cached(wl, "x_lr", (wr, bl, br), lambda: (
+        torch.cat([wl, wr]).contiguous(),
+        torch.cat([bl, br]).to(torch.float32).contiguous()))
+
+
 def fused_gat_layer(h, xf, instr, gate, src, dst, edge_mask, node_mask,
                     e_attr, params, fuse_instr: bool = False):
     """One eval MGAT layer; returns ``(out [B, N, C], alpha [B, E, H])``.
@@ -130,10 +144,10 @@ def fused_gat_layer(h, xf, instr, gate, src, dst, edge_mask, node_mask,
                   xft.data_ptr(), _lib.dt(ht), b, n, c)
     else:
         xft = xf.to(dtype).reshape(b * n, c).contiguous()
-    x_l = gemm([(xft, None)], p["wl"], p["bl"], out_dtype=dtype)
-    x_r = gemm([(xft, None)], p["wr"], p["br"], out_dtype=dtype)
+    w_lr, b_lr = stacked_lr(p)
+    x_lr = product([(xft, None)], w_lr, b_lr, out_dtype=dtype)
     et = e_attr.to(dtype).reshape(b * e, c).contiguous()
-    eproj = gemm([(et, None)], p["we"], None, out_dtype=dtype)
+    eproj = product([(et, None)], p["we"], None, out_dtype=dtype)
 
     g = gate.reshape(b, n).to(dtype).to(torch.float32).contiguous()
     em = edge_mask.to(torch.float32).contiguous()
@@ -144,14 +158,16 @@ def fused_gat_layer(h, xf, instr, gate, src, dst, edge_mask, node_mask,
     _lib.check_cuda(g, em, nm, src32, dst32, cbias)
     alpha = torch.empty((b, e, heads), dtype=torch.float32, device=h.device)
     conv = torch.empty((b * n, hc), dtype=dtype, device=h.device)
-    _lib.call("isg_gat_edge", x_l.data_ptr(), x_r.data_ptr(),
-              eproj.data_ptr(), _lib.dt(x_l), g.data_ptr(), src32.data_ptr(),
+    _lib.call("isg_gat_edge", x_lr.data_ptr(),
+              x_lr.data_ptr() + hc * x_lr.element_size(), 2 * hc,
+              eproj.data_ptr(), _lib.dt(x_lr), g.data_ptr(), src32.data_ptr(),
               dst32.data_ptr(), em.data_ptr(), att.data_ptr(),
               cbias.data_ptr(), alpha.data_ptr(), conv.data_ptr(), b, n, e,
               heads, c)
 
-    q = gemm([(conv, None)], p["w1"], p["b1"], act="gelu", out_dtype=dtype)
-    q = gemm([(q, None)], p["w2"], p["b2"], act="gelu")
+    q = product([(conv, None)], p["w1"], p["b1"], act="gelu",
+                out_dtype=dtype)
+    q = product([(q, None)], p["w2"], p["b2"], act="gelu")
     out = torch.empty((b * n, c), dtype=dtype, device=h.device)
     _lib.check_cuda(p["gn_w"], p["gn_b"], p["gn_a"])
     _lib.call("isg_graph_norm", q.data_ptr(), nm.data_ptr(), it.data_ptr(),

@@ -8,10 +8,11 @@ custom VJP over ``_gatconv_pallas_fwd`` / ``_fwd_kernel`` and
 
 :func:`fused_gatconv` is a :class:`torch.autograd.Function`:
 
-* forward — shared GEMMs for ``x_l``, ``x_r`` (f32 weights, as the
-  Pallas training kernel keeps them: ``gat_train.py:_prep``) and the
-  lin_edge projection (weight and edges at the model dtype, the result
-  rounded to it), then ``csrc/gat_kernel.cu:isg_gat_edge_train``: edge
+* forward — the f32 GEMM (``csrc/gemm.cu``, 3xTF32) for ``x_l``,
+  ``x_r`` (f32 weights, as the Pallas training kernel keeps them:
+  ``gat_train.py:_prep``) and the graph-layer GEMM (:func:`.gemm.product`;
+  bf16: ``csrc/gemm_gather_sm90.cu``) for the lin_edge projection (weight
+  and edges at the model dtype, the result rounded to it), then ``csrc/gat_kernel.cu:isg_gat_edge_train``: edge
   gate, message, 4-head logits, per-destination softmax, ``alpha`` and
   ``conv = sum x_l[src] * alpha * egate + bias``, all f32.  ``x_l``,
   ``x_r`` and the projected edges are saved for the backward (the TPU
@@ -50,7 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _lib
-from .gemm import colsum, dgrad, gemm, plain_product, reduce_rows, ste, wgrad
+from .gemm import (colsum, dgrad, gemm, plain_product, product, reduce_rows,
+                   ste, wgrad)
 from .metalayer_kernel import GN_EPS, NEG, gather_rows
 from ..sampling.node_edge import dense_node_gate_to_edge_gate
 
@@ -120,7 +122,7 @@ class _GatConv(torch.autograd.Function):
         et = e_attr.to(dtype).reshape(b * e, -1).contiguous()
         x_l = gemm([(xw, None)], wl, p["bl"].detach().float().contiguous())
         x_r = gemm([(xw, None)], wr, p["br"].detach().float().contiguous())
-        eproj = gemm([(et, None)], we, None, out_dtype=dtype)
+        eproj = product([(et, None)], we, None, out_dtype=dtype)
         g = gate.reshape(b, n).to(dtype).float().contiguous()
         em = edge_mask.to(torch.float32).contiguous()
         src32 = src.to(torch.int32).contiguous()

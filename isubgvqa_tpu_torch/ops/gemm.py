@@ -1,29 +1,36 @@
-"""Python side of the shared GEMM (``csrc/gemm.cu``, backward forms in
-``csrc/gemm_any.cu``) and its plain twin.
+"""Python side of the port's GEMMs and their plain twins.
 
-:func:`gemm` launches the hand-written forward kernel and
-:func:`gemm_any` / :func:`dgrad` / :func:`wgrad` / :func:`colsum` its
-backward forms; they are used only inside the fused-layer wrappers, on
-CUDA tensors.  :func:`linear_plain` is the same arithmetic in plain
-PyTorch for the ``*_plain`` versions: the operand and the weight are
-rounded to the model dtype, the product and the bias are taken in f32
-(flax ``Dense(dtype=...)`` with f32 accumulation, as inside the Pallas
+* :func:`gemm_gather` launches the graph layers' bf16 products on the
+  Hopper form that gathers its rows (``csrc/gemm_gather_sm90.cu``:
+  cp.async into swizzled tiles, wgmma); :func:`gemm_gather_plain` is the
+  same composition in plain PyTorch, for the CPU tests.
+* :func:`gemm_sm90` / :func:`gemm_ln_sm90` launch the question stack's
+  bf16 products (``csrc/gemm_sm90.cu``: TMA and wgmma).
+* :func:`gemm` launches the f32 products (``csrc/gemm.cu``, 3xTF32 on the
+  tensor cores) and :func:`gemm_any` / :func:`dgrad` / :func:`wgrad` /
+  :func:`colsum` the backward forms (``csrc/gemm_any.cu``).
+* :func:`product` sends a layer's product to :func:`gemm_gather` for a
+  bf16 weight and to :func:`gemm` for an f32 one.
+
+They are used only inside the fused-layer wrappers, on CUDA tensors.
+:func:`linear_plain` is the same arithmetic in plain PyTorch for the
+``*_plain`` versions: the operand and the weight are rounded to the
+model dtype, the product and the bias are taken in f32 (flax
+``Dense(dtype=...)`` with f32 accumulation, as inside the Pallas
 kernels).  Rounding goes through :func:`ste`, whose gradient passes
 unrounded, as the Pallas backward kernels take their gradients in f32.
 
-The kernels take their f32 products in the 3xTF32 form on the tensor
-cores (``csrc/tensor_core.cuh``); :func:`split_tf32` and :func:`tf32x3_mm` are
-that arithmetic in plain PyTorch.  The plain versions' products go
-through :func:`plain_product`, whose backward (the dgrad and wgrad
-products) calls :data:`backward_product`: a plain f32 matmul by
-default, so the plain versions stay the f32 oracle, or
-:func:`tf32x3_mm` when a test routes them through the kernels'
-arithmetic.
+:func:`split_tf32` and :func:`tf32x3_mm` are the 3xTF32 arithmetic in
+plain PyTorch.  The plain versions' products go through
+:func:`plain_product`, whose backward (the dgrad and wgrad products)
+calls :data:`backward_product`: a plain f32 matmul by default, so the
+plain versions stay the f32 oracle, or :func:`tf32x3_mm` when a test
+routes them through the kernels' arithmetic.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,33 +49,36 @@ def ste(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return xf + (xf.to(dtype).float() - xf).detach()
 
 
-def gemm(segments: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
-         weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+Segments = Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
+
+
+def gemm(segments: Segments, weight: torch.Tensor,
+         bias: Optional[torch.Tensor] = None,
          act: Optional[str] = None, out_dtype: torch.dtype = torch.float32,
          row_scale: Optional[torch.Tensor] = None,
          emul: Optional[torch.Tensor] = None,
          pre: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``act(sum_s A_s[idx_s] @ weight[:, cols_s].T + bias) * emul *
-    row_scale``; ``pre`` (f32 ``[M, N]``) receives the pre-activation.
+    row_scale`` against an f32 weight, in the 3xTF32 form; ``pre`` (f32
+    ``[M, N]``) receives the pre-activation.
 
     ``segments``: up to three ``(A [R, K_s], idx [M] int32 | None)``;
     ``idx`` gathers row ``idx[m]`` of ``A`` (a zero row where it is
     negative).  ``weight`` is a torch Linear weight ``[N, sum K_s]``.
-    Returns ``[M, N]`` at ``out_dtype``.  Both weight types run on the
-    tensor cores (bf16 directly, f32 in the 3xTF32 form) and need every
-    ``K_s`` and row pitch to be a multiple of 4 elements (the kernel
-    returns an error otherwise).  bf16 operands against an f32 weight
-    are exact in TF32, and the f32 path then drops their lo products.
+    Returns ``[M, N]`` at ``out_dtype``.  Every ``K_s`` and row pitch must
+    be a multiple of 4 elements (the kernel returns an error otherwise).
+    A bf16 operand is widened, exactly, and then drops its lo products.
+    bf16 weights go to :func:`gemm_gather`.
     """
+    if weight.dtype != torch.float32:
+        raise TypeError(f"gemm takes an f32 weight (got {weight.dtype}); "
+                        f"bf16 products go to gemm_gather")
     assert 1 <= len(segments) <= 3
     n, ktot = weight.shape
     m = None
     args = []
-    a_exact = weight.dtype == torch.float32 and all(
-        a.dtype == torch.bfloat16 for a, _ in segments)
-    # the operand is rounded to the weight's dtype (exact for a bf16
-    # operand and an f32 weight, a no-op on the rest of the path)
-    segments = [(a.to(weight.dtype), idx) for a, idx in segments]
+    a_exact = all(a.dtype == torch.bfloat16 for a, _ in segments)
+    segments = [(a.float(), idx) for a, idx in segments]
     for a, idx in segments:
         if m is None:
             m = idx.shape[0] if idx is not None else a.shape[0]
@@ -89,10 +99,167 @@ def gemm(segments: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
     out = torch.empty((m, n), dtype=out_dtype, device=weight.device)
     _lib.call("isg_gemm", *args, len(segments), weight.data_ptr(), ktot,
               _lib.ptr(bias), _lib.ptr(row_scale), _lib.ptr(emul),
-              _lib.ptr(pre), out.data_ptr(), n, m, n,
-              ACT[act], _lib.dt(segments[0][0]), _lib.dt(weight),
+              _lib.ptr(pre), out.data_ptr(), n, m, n, ACT[act],
               _lib.dt(out), int(a_exact))
     return out
+
+
+def cached(owner: torch.Tensor, key, deps: Sequence[torch.Tensor],
+           make: Callable[[], object]):
+    """``make()``, kept on ``owner`` (an attribute of the tensor, so it
+    goes with it) while ``owner`` and ``deps`` are the same tensors at the
+    same storage and version: an eval model's weights are fixed, and an
+    in-place update bumps a tensor's version."""
+    ts = (owner, *deps)
+    state = tuple(t._version for t in ts) + tuple(t.data_ptr() for t in ts)
+    memo = owner.__dict__.setdefault("_isg_memo", {})
+    hit = memo.get(key)
+    if hit is not None and hit[1] == state and all(
+            a is b for a, b in zip(hit[0], deps)):
+        return hit[2]
+    out = make()
+    memo[key] = (tuple(deps), state, out)
+    return out
+
+
+def _tma_weight(ks: Sequence[int], w: torch.Tensor) -> torch.Tensor:
+    """A torch Linear weight ``[N, sum ks]`` laid out for the graph-layer
+    GEMM's TMA loads: segment s from column ``sum_{t<s} ceil(K_t / 64) *
+    64``, rows a multiple of 16 bytes apart, zeros between (a view)."""
+    starts = [0]
+    for k in ks[:-1]:
+        starts.append(starts[-1] + -(-k // 64) * 64)
+    width = starts[-1] + ks[-1]
+    out = torch.zeros((w.shape[0], -(-width // 8) * 8), dtype=w.dtype,
+                      device=w.device)
+    koff = 0
+    for k, start in zip(ks, starts):
+        out[:, start:start + k] = w[:, koff:koff + k]
+        koff += k
+    return out[:, :width]
+
+
+_GATHER_RULE = ("bf16 operands and weight, every segment's K and row pitch "
+                "and the weight's N multiples of 4 elements, 8-byte aligned")
+
+
+def gemm_gather(segments: Segments, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                act: Optional[str] = None,
+                out_dtype: torch.dtype = torch.float32,
+                row_scale: Optional[torch.Tensor] = None,
+                emul: Optional[torch.Tensor] = None,
+                pre: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`gemm`'s function for bf16 segments and a bf16 weight, on the
+    Hopper form that gathers its rows (``csrc/gemm_gather_sm90.cu``).  A
+    weight whose rows are not 16 bytes apart (K = 300) or whose segments
+    do not start at multiples of 64 columns is read from a copy laid out
+    for TMA (:func:`_tma_weight`), made once while the weight stands
+    (:func:`cached`).
+
+    ``segments``: up to three ``(A [R, K_s] bf16, idx [M] int32 | None)``,
+    row-major with unit column stride; ``weight [N, sum K_s]`` bf16;
+    ``bias [N]``, ``row_scale [M]``, ``emul [M, N]`` and ``pre [M, N]``
+    f32.  Returns ``[M, N]`` at ``out_dtype`` (f32 or bf16).  On CPU
+    tensors it runs :func:`gemm_gather_plain`; on CUDA tensors it launches
+    the kernel or raises."""
+    if not weight.is_cuda:
+        return gemm_gather_plain(segments, weight, bias, act, out_dtype,
+                                 row_scale, emul, pre)
+    # few attribute reads: the graph layers issue ten of these a forward,
+    # and the kernel itself refuses widths, pitches and alignments
+    bf = torch.bfloat16
+    a0, i0 = segments[0]
+    m = a0.shape[0] if i0 is None else i0.shape[0]
+    n = weight.shape[0]
+    args = []
+    ks = ()
+    for a, idx in segments:
+        if a.dtype != bf or weight.dtype != bf:
+            raise TypeError(f"gemm_gather takes {_GATHER_RULE}")
+        if (a.stride(1) != 1 or not a.is_cuda or a.numel() >= 2 ** 31
+                or (a.shape[0] if idx is None else idx.shape[0]) != m
+                or idx is not None and (idx.dtype != torch.int32
+                                        or not idx.is_contiguous()
+                                        or not idx.is_cuda)):
+            raise ValueError(f"gemm_gather: CUDA segment {tuple(a.shape)} "
+                             f"for {m} rows (int32 contiguous indices)")
+        ks += (a.shape[1],)
+        args += (a.data_ptr(), None if idx is None else idx.data_ptr(),
+                 a.stride(0), a.shape[1])
+    if len(ks) > 3 or sum(ks) != weight.shape[1] or weight.stride(1) != 1:
+        raise ValueError(f"gemm_gather: weight {tuple(weight.shape)} for "
+                         f"segments of {list(ks)}")
+    args += [None, None, 0, 0] * (3 - len(ks))
+    if (weight.stride(0) % 8 or weight.data_ptr() % 16
+            or any(k % 64 for k in ks[:-1])):
+        w = weight
+        weight = cached(w, ks, (), lambda: _tma_weight(ks, w))
+    for t, shape in ((bias, (n,)), (row_scale, (m,)), (emul, (m, n)),
+                     (pre, (m, n))):
+        if t is not None and (t.dtype != torch.float32 or t.shape != shape
+                              or not t.is_contiguous() or not t.is_cuda):
+            raise ValueError(f"gemm_gather: contiguous CUDA f32 {shape} "
+                             f"expected, got {t.dtype} {tuple(t.shape)}")
+    out = torch.empty((m, n), dtype=out_dtype, device=weight.device)
+    _lib.call("isg_gemm_gather", *args, len(ks), weight.data_ptr(),
+              weight.stride(0), _lib.ptr(bias), _lib.ptr(row_scale),
+              _lib.ptr(emul), _lib.ptr(pre), out.data_ptr(), _lib.dt(out), m,
+              n, ACT[act], invalid=_GATHER_RULE)
+    return out
+
+
+def gather_segments(segments: Segments) -> torch.Tensor:
+    """The segments' rows side by side, ``[M, sum K_s]``: row ``idx[m]``
+    of each (a zero row where the index is negative)."""
+    parts = []
+    for a, idx in segments:
+        if idx is not None:
+            rows = a[idx.clamp(min=0).long()]
+            a = torch.where((idx >= 0)[:, None], rows, torch.zeros_like(rows))
+        parts.append(a)
+    return torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+
+
+def gemm_gather_plain(segments: Segments, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      act: Optional[str] = None,
+                      out_dtype: torch.dtype = torch.float32,
+                      row_scale: Optional[torch.Tensor] = None,
+                      emul: Optional[torch.Tensor] = None,
+                      pre: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`gemm_gather` in plain PyTorch: the gathered segments, each
+    product of the operands rounded to the weight's dtype taken in f32
+    (:func:`linear_plain`), summed, then the kernel's epilogue."""
+    y = None
+    koff = 0
+    for a, idx in segments:
+        k = a.shape[1]
+        part = linear_plain(gather_segments([(a, idx)]),
+                            weight[:, koff:koff + k])
+        y = part if y is None else y + part
+        koff += k
+    if bias is not None:
+        y = y + bias.float()
+    if pre is not None:
+        pre.copy_(y)
+    if act == "gelu":
+        y = F.gelu(y)
+    elif act == "relu":
+        y = torch.relu(y)
+    if emul is not None:
+        y = y * emul
+    if row_scale is not None:
+        y = y * row_scale[:, None]
+    return y.to(out_dtype)
+
+
+def product(segments: Segments, weight: torch.Tensor, *args,
+            **kwargs) -> torch.Tensor:
+    """A graph layer's product: :func:`gemm_gather` for a bf16 weight,
+    :func:`gemm` (3xTF32) for an f32 one; the same arguments."""
+    fn = gemm_gather if weight.dtype == torch.bfloat16 else gemm
+    return fn(segments, weight, *args, **kwargs)
 
 
 _SM90_RULE = ("bf16 row-major operands whose width K, weight rows N and row "

@@ -3,12 +3,18 @@
 Replaces ``isubgvqa_tpu/ops/pallas/metalayer_kernel.py:fused_metalayer``
 (``_kernel``).
 
-Design on the H100, a fixed sequence of hand-written launches:
+Design on the H100, a fixed sequence of hand-written launches (nine):
 
-1. edge MLP ``[x_src, x_dst, e]`` 900 -> 300 (GELU) as one shared-GEMM
-   launch whose A operand is three segments, two of them gathered by
-   row index, against the ``[C, 3C]`` weight split by columns — the
-   ``[E, 900]`` concat never exists (``metalayer_kernel.py:63-77``);
+0. ``csrc/metalayer_kernel.cu:isg_graph_index``: each edge's src and dst
+   row in the flattened node rows (-1 on padding) and the f32 edge
+   mask, in one launch;
+1. edge MLP ``[x_src, x_dst, e]`` 900 -> 300 (GELU) as one launch of
+   the graph-layer GEMM (:func:`.gemm.product`: for bf16
+   ``csrc/gemm_gather_sm90.cu``, wgmma fed by cp.async gathers; for f32
+   ``csrc/gemm.cu``'s 3xTF32 form) whose A operand is three segments,
+   two of them gathered by row index, against the ``[C, 3C]`` weight
+   split by columns — the ``[E, 900]`` concat never exists
+   (``metalayer_kernel.py:63-77``);
 2. edge MLP 300 -> 300 gives ``e_out``;
 3. node MLP1 on ``[x_src, e_out]`` (GELU), then 300 -> 300 times the
    edge mask;
@@ -18,7 +24,7 @@ Design on the H100, a fixed sequence of hand-written launches:
 6. ``isg_graph_norm``: GraphNorm over each graph's valid nodes.
 
 Bound: the MLP products dominate (about 14 C^2 FLOPs per edge), so the
-round is operation-bound and waits on the shared GEMM's speed.  Padding
+round is operation-bound and waits on the GEMM's speed.  Padding
 edges gather zero rows (their one-hot rows are zero on the TPU), so
 ``e_out`` of a padding edge is the MLP of its edge features alone,
 exactly as in the JAX kernel.
@@ -36,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _lib
-from .gemm import gemm, linear_plain, ste
+from .gemm import linear_plain, product, ste
 
 GN_EPS = 1e-5
 NEG = -1.0e30
@@ -103,16 +109,30 @@ def fused_metalayer_plain(x, e_attr, src, dst, edge_mask, node_mask, params):
     return x_out.to(dtype), e_out.to(dtype)
 
 
-def graph_index(pos, edge_mask, n: int):
-    """Per-edge row index into the flattened ``[B * N, C]`` node rows;
-    -1 (a zero row) on padding edges and on an index outside the graph,
-    so that the gather never reads another graph's rows."""
-    base = (torch.arange(pos.shape[0], device=pos.device,
-                         dtype=torch.int32) * n)[:, None]
+def graph_index(src, dst, edge_mask, n: int):
+    """Per-edge row indices of ``src`` and ``dst`` into the flattened
+    ``[B * N, C]`` node rows, ``[2, B * E]`` int32; -1 (a zero row) on
+    padding edges and on an index outside the graph, so that the gather
+    never reads another graph's rows: the plain version of
+    ``csrc/metalayer_kernel.cu:isg_graph_index``."""
+    pos = torch.stack([src, dst]).to(torch.int32)              # [2, B, E]
+    base = torch.arange(0, pos.shape[1] * n, n, dtype=torch.int32,
+                        device=pos.device)[:, None]
     inside = edge_mask & (pos >= 0) & (pos < n)
-    g = torch.where(inside, pos.to(torch.int32) + base,
-                    torch.full_like(base, -1).expand_as(pos))
-    return g.reshape(-1).contiguous()
+    return (pos + base).masked_fill_(~inside, -1).reshape(2, -1)
+
+
+def graph_index_launch(src32, dst32, edge_mask, n: int):
+    """:func:`graph_index` and the edge mask as f32 ``[B, E]``, on the card
+    in one launch (``isg_graph_index``); ``src32`` / ``dst32`` int32."""
+    b, e = src32.shape
+    emb = edge_mask.to(torch.bool).contiguous()
+    gidx = torch.empty((2, b * e), dtype=torch.int32, device=src32.device)
+    em = torch.empty((b, e), dtype=torch.float32, device=src32.device)
+    _lib.check_cuda(src32, dst32, emb)
+    _lib.call("isg_graph_index", src32.data_ptr(), dst32.data_ptr(),
+              emb.data_ptr(), gidx.data_ptr(), em.data_ptr(), b, e, n)
+    return gidx, em
 
 
 def metalayer_launch(x, e_attr, src, dst, edge_mask, node_mask, params,
@@ -128,29 +148,28 @@ def metalayer_launch(x, e_attr, src, dst, edge_mask, node_mask, params,
     dtype = x.dtype
     xt = x.reshape(b * n, c).contiguous()
     et = e_attr.to(dtype).reshape(b * e, c).contiguous()
-    em = edge_mask.to(torch.float32).contiguous()
-    nm = node_mask.to(torch.float32).contiguous()
-    gsrc = graph_index(src, edge_mask, n)
-    gdst = graph_index(dst, edge_mask, n)
+    src32 = src.to(torch.int32).contiguous()
+    dst32 = dst.to(torch.int32).contiguous()
+    (gsrc, gdst), em = graph_index_launch(src32, dst32, edge_mask, n)
     pre = ((lambda rows: torch.empty((rows, c), dtype=torch.float32,
                                      device=x.device))
            if save else (lambda rows: None))
     h1, m1p, o1p = pre(b * e), pre(b * e), pre(b * n)
-    h = gemm([(xt, gsrc), (xt, gdst), (et, None)], p["ew1"], p["eb1"],
-             act="gelu", out_dtype=dtype, pre=h1)
-    e_out = gemm([(h, None)], p["ew2"], p["eb2"], out_dtype=dtype)
-    m1 = gemm([(xt, gsrc), (e_out, None)], p["n1w1"], p["n1b1"], act="gelu",
-              out_dtype=dtype, pre=m1p)
-    m = gemm([(m1, None)], p["n1w2"], p["n1b2"], row_scale=em.reshape(-1))
+    h = product([(xt, gsrc), (xt, gdst), (et, None)], p["ew1"], p["eb1"],
+                act="gelu", out_dtype=dtype, pre=h1)
+    e_out = product([(h, None)], p["ew2"], p["eb2"], out_dtype=dtype)
+    m1 = product([(xt, gsrc), (e_out, None)], p["n1w1"], p["n1b1"],
+                 act="gelu", out_dtype=dtype, pre=m1p)
+    m = product([(m1, None)], p["n1w2"], p["n1b2"],
+                row_scale=em.reshape(-1))
     agg = torch.empty((b * n, c), dtype=dtype, device=x.device)
-    dst32 = dst.to(torch.int32).contiguous()
-    src32 = src.to(torch.int32).contiguous()
     _lib.call("isg_scatter_mean", m.data_ptr(), dst32.data_ptr(),
               em.data_ptr(), agg.data_ptr(), _lib.dt(agg), b, n, e, c)
-    o1 = gemm([(xt, None), (agg, None)], p["n2w1"], p["n2b1"], act="gelu",
-              out_dtype=dtype, pre=o1p)
-    o2 = gemm([(o1, None)], p["n2w2"], p["n2b2"])
+    o1 = product([(xt, None), (agg, None)], p["n2w1"], p["n2b1"],
+                 act="gelu", out_dtype=dtype, pre=o1p)
+    o2 = product([(o1, None)], p["n2w2"], p["n2b2"])
     x_out = torch.empty((b * n, c), dtype=dtype, device=x.device)
+    nm = node_mask.to(torch.float32).contiguous()
     _lib.check_cuda(p["gn_w"], p["gn_b"], p["gn_a"])
     _lib.call("isg_graph_norm", o2.data_ptr(), nm.data_ptr(), None, None,
               _lib.dt(x), p["gn_w"].data_ptr(), p["gn_b"].data_ptr(),

@@ -9,7 +9,7 @@ A :class:`torch.autograd.Function`:
 
 * forward — the eval round's launches (:func:`.metalayer_kernel.
   metalayer_launch`), which also write the three GELU pre-activations
-  (f32, from the shared GEMM's epilogue) and keep the products'
+  (f32, from the graph-layer GEMM's epilogue) and keep the products'
   operands.  The TPU recomputes the round in VMEM from its inputs
   instead; here the largest saved tensors at B = 256 graphs, E = 384
   edges are the f32 edge pre-activations (about 0.12 GB each), small

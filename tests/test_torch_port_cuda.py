@@ -527,6 +527,124 @@ def test_gemm_sm90_rejects_what_tma_cannot_tile(card):
         gemm.gemm_sm90(a.float(), w)
 
 
+# The graph layers' bf16 products (csrc/gemm_gather_sm90.cu: cp.async
+# gathers into swizzled tiles, wgmma) against the plain twin, which sums
+# the same bf16 products in f32: the tolerances of SM90_TOL.  Each case:
+# segments as (rows, K, gathered), N, M, epilogue; the first eight are
+# the GAT and MetaLayer products at a small M that is not a multiple of
+# the 128-row tile.
+GATHER_CASES = {
+    "x_lr_K300_N2400": ([(1000, 300, False)], 2400, 1000,
+                        dict(bias=True, out=torch.bfloat16)),
+    "lin_edge_K300_N1200": ([(777, 300, False)], 1200, 777,
+                            dict(out=torch.bfloat16)),
+    "x_proj1_K1200_N600": ([(513, 1200, False)], 600, 513,
+                           dict(bias=True, act="gelu", out=torch.bfloat16)),
+    "x_proj2_K600_N300": ([(513, 600, False)], 300, 513,
+                          dict(bias=True, act="gelu")),
+    "edge_mlp_K900_3seg": ([(300, 300, True), (300, 300, True),
+                            (1001, 300, False)], 300, 1001,
+                           dict(bias=True, act="gelu", pre=True,
+                                out=torch.bfloat16)),
+    "node_mlp1_K600_2seg": ([(300, 300, True), (1001, 300, False)], 300,
+                            1001, dict(bias=True, act="gelu", pre=True,
+                                       out=torch.bfloat16)),
+    "node_mlp1_out_rowscale": ([(1001, 300, False)], 300, 1001,
+                               dict(bias=True, row_scale=True)),
+    "node_mlp2_K600_2dense": ([(300, 300, False), (300, 300, False)], 300,
+                              300, dict(bias=True, act="gelu", pre=True,
+                                        out=torch.bfloat16)),
+    "relu_emul_K64": ([(200, 64, False)], 64, 200,
+                      dict(act="relu", emul=True)),
+    "gathered_K16_N64": ([(50, 16, True)], 64, 70, dict(out=torch.bfloat16)),
+    "wide_copies_K512": ([(129, 512, True), (129, 512, False)], 512, 129,
+                         dict(bias=True, pre=True)),
+    "strided_rows": ([(64, 300, False)], 300, 64, dict(strided=True)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(GATHER_CASES))
+def test_gemm_gather_matches_plain_twin(card, name):
+    """1, 2 and 3 segments, gathered and not, with negative indices; K of
+    16 to 1200 and N of 64 to 2400; each epilogue option (bias, GELU /
+    ReLU, row_scale, emul, pre) and both output types; the same bits on
+    a rerun."""
+    from isubgvqa_tpu_torch.ops import gemm
+
+    spec, n, m, opts = GATHER_CASES[name]
+    g = torch.Generator(device=DEVICE).manual_seed(len(name))
+    segs = []
+    for rows, k, gathered in spec:
+        a = torch.randn(rows, k + 4 if opts.get("strided") else k,
+                        device=DEVICE, generator=g).to(torch.bfloat16)
+        a = a[:, :k]                      # row pitch k + 4 where strided
+        idx = None
+        if gathered:
+            idx = torch.randint(-1, rows, (m,), device=DEVICE, generator=g,
+                                dtype=torch.int32)
+            idx[:3] = -1
+        segs.append((a, idx))
+    ktot = sum(k for _, k, _ in spec)
+    w = (torch.randn(n, ktot, device=DEVICE, generator=g) / ktot ** 0.5).to(
+        torch.bfloat16)
+    kw = dict(
+        bias=torch.randn(n, device=DEVICE, generator=g)
+        if opts.get("bias") else None,
+        act=opts.get("act"), out_dtype=opts.get("out", torch.float32),
+        row_scale=torch.rand(m, device=DEVICE, generator=g)
+        if opts.get("row_scale") else None,
+        emul=torch.rand(m, n, device=DEVICE, generator=g)
+        if opts.get("emul") else None)
+    pre, pre_want = ((torch.empty(m, n, device=DEVICE),
+                      torch.empty(m, n, device=DEVICE)) if opts.get("pre")
+                     else (None, None))
+    got = gemm.gemm_gather(segs, w, pre=pre, **kw)
+    torch.cuda.synchronize()
+    want = gemm.gemm_gather_plain(segs, w, pre=pre_want, **kw)
+    assert got.dtype == kw["out_dtype"] and got.shape == (m, n)
+    _close(got, want.float(), SM90_TOL[kw["out_dtype"]])
+    if pre is not None:
+        _close(pre, pre_want, SM90_TOL[torch.float32])
+    assert torch.equal(gemm.gemm_gather(segs, w, pre=pre, **kw), got)
+
+
+@pytest.mark.gpu
+def test_gemm_gather_rejects_what_it_cannot_take(card):
+    """An f32 operand or weight, a K or N not a multiple of 4, a segment
+    whose rows do not match: the wrapper raises, no other path runs."""
+    from isubgvqa_tpu_torch.ops import gemm
+
+    a = torch.randn(64, 300, device=DEVICE).to(torch.bfloat16)
+    w = torch.randn(300, 300, device=DEVICE).to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        gemm.gemm_gather([(a.float(), None)], w)
+    with pytest.raises(TypeError):
+        gemm.gemm_gather([(a, None)], w.float())
+    with pytest.raises(ValueError):                 # K = 298
+        gemm.gemm_gather([(a[:, :298].contiguous(), None)],
+                         w[:, :298].contiguous())
+    with pytest.raises(ValueError):                 # N = 298
+        gemm.gemm_gather([(a, None)], w[:298].contiguous())
+    with pytest.raises(ValueError):
+        gemm.gemm_gather([(a, None), (a[:32], None)],
+                         torch.cat([w, w], 1))
+
+
+@pytest.mark.gpu
+def test_graph_index_kernel_matches_plain(card):
+    """The MetaLayer's gather indices in one launch: padding edges and an
+    index outside the graph give -1, the f32 edge mask beside them."""
+    from isubgvqa_tpu_torch.ops import metalayer_kernel as M
+
+    rng = np.random.default_rng(3)
+    nm, em, src, dst = graphs(rng, 5, 16, 40)
+    src[2, 0], dst[3, 1] = 16, -2           # outside the graph
+    gidx, emf = M.graph_index_launch(src, dst, em, 16)
+    assert torch.equal(gidx, M.graph_index(src, dst, em, 16))
+    assert torch.equal(emf, em.float())
+
+
 LN_CASES = [(1, 512, 512), (65, 512, 2048), (2048, 512, 512), (50, 64, 128)]
 
 
