@@ -8,7 +8,8 @@ Phases (each prints one line or a few; any failure raises and the
 script exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the CUDA kernels from ``isubgvqa_tpu_torch/csrc/``;
+2. build: the CUDA kernels from ``isubgvqa_tpu_torch/csrc/``, with
+   ptxas's registers and spills of every kernel;
 3. kernels: each of the four fused layers against its plain PyTorch
    version on the card, at the main path's shapes (every node bucket for
    the graph layers, L = 16 and 32 for the text layers), in f32 (TF32
@@ -38,12 +39,18 @@ script exits non-zero):
    port's attention core forward+backward beside SDPA's on the same q,
    k, v, bias and cotangent, the text layers' fwd+bwd beside the
    ``nn.Transformer{Encoder,Decoder}Layer`` call's (bf16), and device
-   time by kernel at the largest shapes with the backward GEMM's
-   effective TFLOP/s, the backward GEMM against an f64 product at the
-   main path's longest reduction, and, for the f32 encoder layer at
-   L = 32, the FFN pre-activations whose sign differs between the
-   kernel's and the plain forward with ``linear1``'s gradient error over
-   the units that hold no flip;
+   time by kernel at the largest shapes with the backward GEMMs'
+   effective TFLOP/s (``gemm_any`` for the GAT conv and the encoder
+   layer, the staged ``gemm_bwd`` for the MetaLayer and the decoder
+   layer) and, for the MetaLayer and the decoder layer, the CUDA kernels
+   of one forward and of one backward; both backward GEMMs (and the
+   staged one's bias column) against an f64 product at the main path's
+   longest reduction; each staged backward launch of the MetaLayer and
+   the decoder layer against its plain twin at their largest shapes, f32
+   and bf16; and, for the f32 encoder layer at L = 32, the FFN
+   pre-activations whose sign differs between the kernel's and the plain
+   forward with ``linear1``'s gradient error over the units that hold no
+   flip;
 8. training: ``train_step`` of the full-width config of record (bf16,
    dropouts on) at batch 256 on the GQA-like synthetic mix through the
    bucketed collators, one warm-up step and 5 counted steps over two
@@ -565,13 +572,13 @@ def device_profile(fn, launches=None):
 
 
 # the port's kernels by name, the most specific first
-KERNEL_FAMILIES = ("gemm_any", "gemm_sm90", "gemm_gather", "gemm",
-                   "reduce_rows", "colsum",
+KERNEL_FAMILIES = ("gemm_any", "gemm_bwd", "gemm_sm90", "gemm_gather",
+                   "gemm", "reduce_rows", "colsum",
                    "gat_edge_bwd", "gat_edge", "graph_norm_bwd", "graph_norm",
                    "graph_index",
                    "attention_bwd", "attention_mma", "attention", "ln_bwd",
                    "residual_ln",
-                   "relu_bwd", "gelu_bwd", "scatter_mean_bwd", "scatter_mean",
+                   "relu_bwd", "scatter_mean_bwd", "scatter_mean",
                    "scatter_rows", "instr_gelu")
 
 
@@ -667,13 +674,25 @@ KERNELS = {
                         "isubgvqa_tpu/ops/pallas/metalayer_kernel.py:143"),
     "fused_gatconv": ("isubgvqa_tpu_torch/csrc/gat_train.cu",
                       "isubgvqa_tpu/ops/pallas/gat_train.py:484"),
-    "fused_metalayer_train": ("isubgvqa_tpu_torch/csrc/metalayer_train.cu",
+    "fused_metalayer_train": ("isubgvqa_tpu_torch/csrc/gemm_bwd.cu",
                               "isubgvqa_tpu/ops/pallas/metalayer_train.py:265"),
     "fused_encoder_layer_train": ("isubgvqa_tpu_torch/csrc/text_train.cu",
                                   "isubgvqa_tpu/ops/pallas/text_train.py:622"),
-    "fused_decoder_layer_train": ("isubgvqa_tpu_torch/csrc/text_train.cu",
+    "fused_decoder_layer_train": ("isubgvqa_tpu_torch/csrc/gemm_bwd.cu",
                                   "isubgvqa_tpu/ops/pallas/text_train.py:742"),
 }
+
+# The staged training layers' other sources (their first is the staged
+# backward GEMM's; the forward is the eval layer's).
+STAGED_SOURCES = {
+    "fused_metalayer_train": ["isubgvqa_tpu_torch/csrc/metalayer_train.cu",
+                              "isubgvqa_tpu_torch/csrc/gemm_gather_sm90.cu",
+                              "isubgvqa_tpu_torch/csrc/metalayer_kernel.cu"],
+    "fused_decoder_layer_train": ["isubgvqa_tpu_torch/csrc/text_train.cu",
+                                  "isubgvqa_tpu_torch/csrc/gemm_sm90.cu",
+                                  "isubgvqa_tpu_torch/csrc/text_kernel.cu"],
+}
+STAGED_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 
 # The eval graph layers' other sources (their first is the GEMM's).
 GRAPH_SOURCES = {
@@ -720,12 +739,14 @@ def fwd_bwd(fn, inputs, params, cots):
     import torch
 
     leaves = [t for t in inputs if t.requires_grad] + list(params.values())
+    cast = {}        # the cotangents at the outputs' dtype, cast once
 
     def run():
         outs = fn(*inputs, params)
         outs = outs if isinstance(outs, tuple) else (outs,)
         grads = torch.autograd.grad(
-            outs, leaves, [c.to(o.dtype) for o, c in zip(outs, cots)])
+            outs, leaves, [cast.setdefault(i, c.to(o.dtype))
+                           for i, (o, c) in enumerate(zip(outs, cots))])
         return outs, grads
     return run
 
@@ -754,6 +775,7 @@ def phase_train_kernels(model, device):
     import torch.nn.functional as F
     from isubgvqa_tpu_torch.models.layers import keep_mask
     from isubgvqa_tpu_torch.ops import gat_train as G
+    from isubgvqa_tpu_torch.ops import metalayer_kernel as MK
     from isubgvqa_tpu_torch.ops import metalayer_train as M
     from isubgvqa_tpu_torch.ops import text_kernel as TK
     from isubgvqa_tpu_torch.ops import text_train as T
@@ -767,7 +789,8 @@ def phase_train_kernels(model, device):
                 for k, v in params.items()}
 
     def record(key, info, dtype, fn, plain, inputs, params, cots, flops,
-               largest, gemm_flops=None):
+               largest, gemm_flops=None, gemm_family="gemm_any",
+               forward=None):
         run, run_plain = (fwd_bwd(f, inputs, params, cots)
                           for f in (fn, plain))
         (outs, grads), (outs_p, grads_p) = run(), run_plain()
@@ -789,12 +812,26 @@ def phase_train_kernels(model, device):
             _, fam = device_profile(run)
             log(f"[7 train kernels] {key} {info} bfloat16 device time by "
                 f"kernel: {by_kernel(fam) or 'not measured (no CUDA events)'}")
-            if gemm_flops and fam.get("gemm_any"):
-                out["gemm_any_tflops"] = gemm_flops / fam["gemm_any"] / 1e9
-                log(f"[7 train kernels] {key} {info} backward GEMM: "
-                    f"{gemm_flops:.4g} FLOP (padding rows counted) in "
-                    f"{fam['gemm_any']:.3f} device ms = "
-                    f"{out['gemm_any_tflops']:.1f} TFLOP/s effective")
+            if gemm_flops and fam.get(gemm_family):
+                out[f"{gemm_family}_tflops"] = (gemm_flops / fam[gemm_family]
+                                                / 1e9)
+                log(f"[7 train kernels] {key} {info} backward GEMM "
+                    f"({gemm_family}): {gemm_flops:.4g} FLOP (padding rows "
+                    f"counted) in {fam[gemm_family]:.3f} device ms = "
+                    f"{out[f'{gemm_family}_tflops']:.1f} TFLOP/s effective")
+            if forward is not None:
+                # CUDA kernels of one call, counted over three calls (the
+                # profiler may miss the first kernel of its window)
+                per = {}
+                for name, f in (("fwd", forward), ("fwd+bwd", run)):
+                    counts = {}
+                    device_profile(lambda: (f(), f(), f()), counts)
+                    per[name] = round(sum(counts.values()) / 3)
+                out["kernels_fwd"] = per["fwd"]
+                out["kernels_bwd"] = per["fwd+bwd"] - per["fwd"]
+                log(f"[7 train kernels] {key} {info} bfloat16 CUDA kernels "
+                    f"a call: forward {out['kernels_fwd']}, backward "
+                    f"{out['kernels_bwd']} (device profile)")
         return out
 
     def core_fwd_bwd(name, lq, lk, dtype, bias):
@@ -867,13 +904,45 @@ def phase_train_kernels(model, device):
         errs = [rel(gemm.wgrad(a, xb), a.double().t() @ xb.double())
                 for xb in (x, x.to(torch.bfloat16))]
         f32 = rel(a.t() @ x, a.double().t() @ x.double())
-        log(f"[7 train kernels] backward GEMM against f64, same-sign "
-            f"operands, K={k}: max abs error over max abs: f32 B "
-            f"{errs[0]:.3g}, bf16 B {errs[1]:.3g}; torch f32 product "
-            f"{f32:.3g}")
-        if not max(errs) <= 4e-6:
-            raise AssertionError(f"backward GEMM error {max(errs):.3g} "
-                                 f"> 4e-6")
+        # the staged GEMM: bf16x3 on wgmma (bf16 B), 3xTF32 (f32 B); its
+        # bias column is the sum of A over the same k
+        staged = []
+        for xb in (x.to(torch.bfloat16), x):
+            out = torch.empty(64, 40, device=device)
+            bias = torch.empty(64, device=device)
+            gemm.bwd_stage(gemm.stage_wgrad(a, [(xb, None)], out, bias))
+            staged += [rel(out, a.double().t() @ xb.double()),
+                       rel(bias, a.double().sum(0))]
+        log(f"[7 train kernels] backward GEMMs against f64, same-sign "
+            f"operands, K={k}: max abs error over max abs: gemm_any f32 B "
+            f"{errs[0]:.3g}, bf16 B {errs[1]:.3g}; staged gemm_bwd bf16x3 "
+            f"{staged[0]:.3g} (bias {staged[1]:.3g}), 3xTF32 {staged[2]:.3g}"
+            f" (bias {staged[3]:.3g}); torch f32 product {f32:.3g}")
+        if not max(errs + staged) <= 4e-6:
+            raise AssertionError(f"backward GEMM error "
+                                 f"{max(errs + staged):.3g} > 4e-6")
+
+    def staged_launches(key, info, dtype, run_backward):
+        """Each staged backward launch of one layer against its plain
+        twin (``gemm.bwd_stage_checked``) on the forward's saved tensors:
+        f32 outputs within STAGED_TOL["float32"] of their scale, bf16
+        ones within STAGED_TOL["bfloat16"]."""
+        from isubgvqa_tpu_torch.ops import gemm
+
+        errs = []
+        run_backward(lambda *pr: errs.append(gemm.bwd_stage_checked(*pr)))
+        torch.cuda.synchronize()
+        worst = {k: max(e[k] for e in errs) for k in STAGED_TOL}
+        log(f"[7 train kernels] {key} {info} {str(dtype)[6:]}: {len(errs)} "
+            f"staged backward launches against their plain twins, worst "
+            f"f32 output {worst['float32']:.3g}, bf16 output "
+            f"{worst['bfloat16']:.3g} of scale; by launch (f32, bf16): "
+            + ", ".join(f"{e['float32']:.2g}/{e['bfloat16']:.2g}"
+                        for e in errs))
+        for k, tol in STAGED_TOL.items():
+            if not worst[k] <= tol:
+                raise AssertionError(f"{key} staged launch: {k} output "
+                                     f"error {worst[k]:.3g} > {tol}")
 
     def ffn_flips(info, x, km, masks, params):
         """Where the f32 encoder layer's gradients part from the plain
@@ -945,13 +1014,28 @@ def phase_train_kernels(model, device):
             entries[("fused_gatconv", dtype)] = r
             inputs = [t.clone().requires_grad_(True) for t in (xf, ea)]
             wrap = lambda f: (lambda x, a, p: f(x, a, src, dst, em, nm, p))
+            mp = masters(meta_p)
             r = record("fused_metalayer_train", info, dtype,
                        wrap(M.fused_metalayer_train),
-                       wrap(M.fused_metalayer_train_plain), inputs,
-                       masters(meta_p),
+                       wrap(M.fused_metalayer_train_plain), inputs, mp,
                        (torch.randn(b, n, c, device=device),
                         torch.randn(b, e, c, device=device)),
-                       M.metalayer_train_flops(nv, ev, c), largest)
+                       M.metalayer_train_flops(nv, ev, c), largest,
+                       gemm_flops=(12.0 * b * n + 28.0 * b * e) * c * c,
+                       gemm_family="gemm_bwd",
+                       forward=lambda: M.fused_metalayer_train(
+                           xf, ea, src, dst, em, nm, mp))
+            if largest:
+                ps = T.ship_params(meta_p, dtype)
+                _, _, saved = MK.metalayer_launch(xf, ea, src, dst, em, nm,
+                                                  ps, save=True)
+                staged_launches(
+                    "fused_metalayer_train", info, dtype,
+                    lambda stage: M.metalayer_backward(
+                        torch.randn(b, n, c, device=device).to(dtype),
+                        torch.randn(b, e, c, device=device).to(dtype), saved,
+                        ps, (dtype, dtype), stage=stage))
+                del saved
             entries[("fused_metalayer_train", dtype)] = r
         for l in TEXT_LENS:
             info = f"B={b} L={l}"
@@ -985,17 +1069,32 @@ def phase_train_kernels(model, device):
                       "cross_attn": draw(b, 8, 4, l), "post_ca": draw(b, 4, d),
                       "ffn": draw(b, 4, 2048), "post_ffn": draw(b, 4, d)}
             info = f"B={b} T=4 L={l}"
+            dpm = masters(dec_p)
             r = record("fused_decoder_layer_train", info, dtype,
                        lambda t, m, p: T.fused_decoder_layer_train(
                            t, m, dmasks, p, 8),
                        lambda t, m, p: T.fused_decoder_layer_train_plain(
                            t, m, dmasks, p, 8),
                        [tgt.clone().requires_grad_(True),
-                        x.clone().requires_grad_(True)], masters(dec_p),
+                        x.clone().requires_grad_(True)], dpm,
                        (torch.randn(b, 4, d, device=device),),
                        T.decoder_layer_train_flops(b, 4, l), largest,
                        gemm_flops=4.0 * (b * 4 * (6 * d * d + 2 * d * 2048)
-                                         + b * l * 2 * d * d))
+                                         + b * l * 2 * d * d),
+                       gemm_family="gemm_bwd",
+                       forward=lambda: T.fused_decoder_layer_train(
+                           tgt, x, dmasks, dpm, 8))
+            if largest:
+                ps = T.ship_params(dec_p, dtype)
+                _, saved = TK.decoder_launch(tgt, x, ps, 8, None,
+                                             TK.masks_at(dmasks, dtype),
+                                             save=True)
+                staged_launches(
+                    "fused_decoder_layer_train", info, dtype,
+                    lambda stage: T.decoder_backward(
+                        torch.randn(b, 4, d, device=device).to(dtype), saved,
+                        ps, 8, (dtype, dtype), stage=stage))
+                del saved
             r["attention_ms"], r["sdpa_ms"] = core_fwd_bwd("cross", 4, l,
                                                            dtype, None)
             if dtype == torch.bfloat16:
@@ -1242,8 +1341,14 @@ def main() -> int:
             row.update(bwd_launches=counts[k + "_bwd"],
                        launches_per_step=PER_STEP[k],
                        ms_covers="forward + backward",
-                       grad_err=r["grad_err"],
-                       gemm_any_tflops=r.get("gemm_any_tflops"))
+                       grad_err=r["grad_err"], host_ms=r["host_ms"])
+            if k in STAGED_SOURCES:
+                row.update(sources=[src] + STAGED_SOURCES[k],
+                           gemm_bwd_tflops=r.get("gemm_bwd_tflops"),
+                           kernels_fwd=r.get("kernels_fwd"),
+                           kernels_bwd=r.get("kernels_bwd"))
+            else:
+                row.update(gemm_any_tflops=r.get("gemm_any_tflops"))
             if text:
                 row["factor"] = r["ms"] / r["library_ms"]
         elif text:     # the bf16 layer: the Hopper GEMM and the mma core

@@ -14,11 +14,16 @@ written here so the port never imports the JAX package.  Layouts:
   prepacking of the TPU kernel is derived from ``att`` and never stored;
 * BatchNorm running statistics come from ``batch_stats``.
 
-:func:`load_upstream_state_dict` reads an upstream ``.pth`` payload.
+:func:`load_upstream_state_dict` reads an upstream ``.pth`` payload, and
+:func:`load_clip_text_tables` the pretrained CLIP text tables that
+``cfg.clip_weights`` names (the port's copy of
+``isubgvqa_tpu/convert.py:load_clip_text_tables``, same formats and key
+spellings).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -165,3 +170,54 @@ def load_upstream_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:
         out[k] = torch.as_tensor(np.asarray(v, np.float32)) \
             if not isinstance(v, torch.Tensor) else v.float()
     return out
+
+
+# Accepted key spellings for the pretrained CLIP text tables, in lookup
+# order: the upstream state-dict names, the HuggingFace CLIPModel names
+# upstream copies from, and bare npz-style keys (the JAX package's
+# ``CLIP_TEXT_TABLE_KEYS``).
+CLIP_TEXT_TABLE_KEYS = (
+    ("text_vocab_embedding.token_embedding.weight",
+     "text_vocab_embedding.position_embedding.weight"),
+    ("text_model.embeddings.token_embedding.weight",
+     "text_model.embeddings.position_embedding.weight"),
+    ("token_embedding", "position_embedding"),
+)
+
+
+def load_clip_text_tables(path: str) -> Dict[str, torch.Tensor]:
+    """The pretrained CLIP token and position tables from ``path``:
+    ``.npz``; ``.safetensors`` (where the ``safetensors`` package is
+    installed); or a torch file holding a raw state dict, an upstream
+    training payload (``{"model": state_dict}``, DDP ``module.`` prefixes
+    stripped) or a HuggingFace CLIPModel state dict.  Returns
+    ``{"token_embedding": [V, D], "position_embedding": [P, D]}`` as f32
+    tensors."""
+    lower = path.lower()
+    if lower.endswith(".npz"):
+        with np.load(path) as z:
+            blob = {k: z[k] for k in z.files}
+    elif lower.endswith(".safetensors"):
+        try:
+            from safetensors.numpy import load_file
+        except ImportError:
+            raise ImportError(f"reading {os.path.basename(path)!r} needs the "
+                              f"safetensors package; save the tables as .npz "
+                              f"or a torch file instead") from None
+        blob = load_file(path)
+    else:
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(blob, Mapping) and isinstance(blob.get("model"),
+                                                    Mapping):
+            blob = blob["model"]
+    blob = {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in blob.items()}
+    for tok, pos in CLIP_TEXT_TABLE_KEYS:
+        if tok in blob and pos in blob:
+            return {"token_embedding": torch.as_tensor(
+                        np.asarray(blob[tok], np.float32)),
+                    "position_embedding": torch.as_tensor(
+                        np.asarray(blob[pos], np.float32))}
+    raise KeyError(f"no CLIP text-embedding tables found in {path!r}; "
+                   f"expected one of the key pairs {CLIP_TEXT_TABLE_KEYS} "
+                   f"(got keys {sorted(blob)[:8]}...)")

@@ -100,6 +100,19 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
   return d;
 }
 
+// Descriptor of an MN-major, 128-byte-swizzled bf16 tile (wgmma's
+// transposed form, bf16 only): 64-column swizzle atoms of 8 K rows x 128
+// bytes (the 16-byte chunks of K row r at chunk c ^ (r % 8)), 8-row groups
+// `sbo` bytes apart along K and atoms `lbo` bytes apart along N.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(uint32_t addr, uint32_t lbo,
+                                                  uint32_t sbo) {
+  uint64_t d = (addr & 0x3FFFFu) >> 4;
+  d |= uint64_t((lbo >> 4) & 0x3FFFu) << 16;
+  d |= uint64_t((sbo >> 4) & 0x3FFFu) << 32;
+  d |= uint64_t(1) << 62;
+  return d;
+}
+
 // Named barrier 1 over the two consumer warpgroups (warps 0-7), which
 // the producer warps never reach.
 __device__ __forceinline__ void consumers_sync() {
@@ -195,7 +208,9 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
 }
 
 // D[64 x 152] (+)= A[64 x 16] . B[152 x 16]^T, both from shared memory
-// (K-major, 128-byte swizzle), f32 sums in d (76 registers a thread).
+// (128-byte swizzle; A K-major, B K-major or, with TNSPB = 1, MN-major:
+// see wgmma_desc_mn), f32 sums in d (76 registers a thread).
+template <int TNSPB = 0>
 __device__ __forceinline__ void wgmma_m64n152k16(float (&d)[76], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -206,7 +221,7 @@ __device__ __forceinline__ void wgmma_m64n152k16(float (&d)[76], uint64_t da,
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
       "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75 "
-      "}, %76, %77, p, 1, 1, 0, 0;\n}\n"
+      "}, %76, %77, p, 1, 1, 0, %79;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -220,7 +235,7 @@ __device__ __forceinline__ void wgmma_m64n152k16(float (&d)[76], uint64_t da,
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
         "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB));
 }
 
 // cp.async of `bytes` (8 or 16) from global memory into shared memory at

@@ -1,28 +1,31 @@
 // Backward kernels of the scene-graph MetaLayer round + GraphNorm.
 //
-// With the shared GEMM's backward forms (gemm.cu) they replace the
-// backward Pallas kernel of isubgvqa_tpu/ops/pallas/metalayer_train.py
-// (_bwd_kernel, called from _metalayer_bwd_call).  The TPU kernel
-// recomputes the forward per graph in VMEM; here the forward
-// (metalayer_kernel.cu and the shared GEMM) saves the pre-activations and
-// the products' operands, and these kernels do the non-GEMM steps:
+// With the staged backward GEMM (gemm_bwd.cu: each stage's dgrad and
+// wgrad in one launch, the bias gradients, GELU's derivative, the
+// accumulation into the e_out gradient and the output cast in its
+// epilogue) they replace the backward Pallas kernel of
+// isubgvqa_tpu/ops/pallas/metalayer_train.py (_bwd_kernel, called from
+// _metalayer_bwd_call).  The TPU kernel recomputes the forward per graph
+// in VMEM; here the forward (metalayer_kernel.cu and the graph-layer GEMM)
+// saves the pre-activations and the products' operands, and these kernels
+// do the steps that are no product:
 //
 // isg_graph_norm_bwd: one block per graph, one thread per channel, the
 //   backward of y = w * (p - a * mean) / sqrt(var + eps) * mask + b over
 //   the graph's valid nodes (mean and var over valid nodes, count clamped
 //   at 1).  Writes dp and the graph's partial gradients of w, b and the
-//   learnable mean scale a; isg_reduce_rows sums those over graphs.
-// isg_gelu_bwd: dx = dy * (Phi(x) + x phi(x)), the exact GELU's
-//   derivative at the saved pre-activation (erff / expf).
+//   learnable mean scale a, laid out [B, 3, C] so that one isg_reduce_rows
+//   sums all three over the graphs, in order.
 // isg_scatter_mean_bwd: the mean aggregation's backward, a gather:
 //   dm[e] = mask[e] * dagg[dst[e]] / max(deg[dst[e]], 1), one block per
 //   graph (degrees counted in shared memory as in the forward).
-// isg_scatter_rows: dx[n] += sum of ds[e] over valid edges with src = n
-//   and of dd[e] over valid edges with dst = n — the gradients of the
-//   gathered x[src] / x[dst] rows sent back to their nodes.  One block per
-//   (graph, 64-channel slice), each thread owning a channel and walking
-//   the edges in order into shared memory: deterministic, no atomics.
-// All four are bound by bytes.
+// isg_scatter_rows: out[n] = base[n] + the sum of ds[e] over valid edges
+//   with src = n and of dd[e] over valid edges with dst = n — the
+//   gradients of the gathered x[src] / x[dst] rows sent back to their
+//   nodes and written at the input's dtype.  One block per (graph,
+//   64-channel slice), each thread owning a channel and walking the edges
+//   in order into shared memory: deterministic, no atomics.
+// All three are bound by bytes.
 
 #include "common.cuh"
 
@@ -76,21 +79,9 @@ __global__ void graph_norm_bwd_kernel(const TG* __restrict__ dout,
     }
     const float dm = -a * dmean_col / count;
     for (int n = 0; n < N; ++n) dp[((long)b * N + n) * C + c] += mb[n] * dm;
-    part[(0L * B + b) * C + c] = dw;
-    part[(1L * B + b) * C + c] = db;
-    part[(2L * B + b) * C + c] = -dmean_col * mean;
-  }
-}
-
-__global__ void gelu_bwd_kernel(const float* __restrict__ dy,
-                                const float* __restrict__ x,
-                                float* __restrict__ dx, long n) {
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x) {
-    const float v = x[i];
-    const float cdf = 0.5f * (1.f + erff(v * 0.70710678118654752f));
-    const float pdf = 0.39894228040143268f * expf(-0.5f * v * v);
-    dx[i] = dy[i] * (cdf + v * pdf);
+    part[(3L * b + 0) * C + c] = dw;
+    part[(3L * b + 1) * C + c] = db;
+    part[(3L * b + 2) * C + c] = -dmean_col * mean;
   }
 }
 
@@ -119,12 +110,14 @@ __global__ void scatter_mean_bwd_kernel(const float* __restrict__ dagg,
   }
 }
 
+template <typename TO>
 __global__ void scatter_rows_kernel(const float* __restrict__ ds,
                                     const float* __restrict__ dd,
                                     const int* __restrict__ src,
                                     const int* __restrict__ dst,
                                     const float* __restrict__ emask,
-                                    float* __restrict__ dx, int N, int E,
+                                    const float* __restrict__ base,
+                                    TO* __restrict__ out, int N, int E,
                                     int C) {
   extern __shared__ float acc[];        // [N, kSlice]
   const int b = blockIdx.x;
@@ -140,8 +133,10 @@ __global__ void scatter_rows_kernel(const float* __restrict__ ds,
       acc[s * kSlice + threadIdx.x] += ds[er];
       acc[d * kSlice + threadIdx.x] += dd[er];
     }
-    for (int n = 0; n < N; ++n)
-      dx[((long)b * N + n) * C + c] += acc[n * kSlice + threadIdx.x];
+    for (int n = 0; n < N; ++n) {
+      const long o = ((long)b * N + n) * C + c;
+      out[o] = from_f<TO>(base[o] + acc[n * kSlice + threadIdx.x]);
+    }
   }
 }
 
@@ -149,7 +144,7 @@ __global__ void scatter_rows_kernel(const float* __restrict__ ds,
 
 using namespace isg;
 
-// dp [B*N, C] f32 and part [3, B, C] (dw, db, da per graph) from the
+// dp [B*N, C] f32 and part [B, 3, C] (dw, db, da per graph) from the
 // gradient dout (dtype g_dt) of GraphNorm(p).
 ISG_API int isg_graph_norm_bwd(const void* dout, int g_dt, const float* p,
                                const float* nmask, const float* w,
@@ -163,15 +158,6 @@ ISG_API int isg_graph_norm_bwd(const void* dout, int g_dt, const float* p,
   return (int)cudaGetLastError();
 }
 
-ISG_API int isg_gelu_bwd(const float* dy, const float* x, float* dx, long n,
-                         void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long want = (n + 255) / 256;
-  const int blocks = (int)(want < 4096 ? (want > 0 ? want : 1) : 4096);
-  gelu_bwd_kernel<<<blocks, 256, 0, st>>>(dy, x, dx, n);
-  return (int)cudaGetLastError();
-}
-
 ISG_API int isg_scatter_mean_bwd(const float* dagg, const int* dst,
                                  const float* emask, float* dm, int B, int N,
                                  int E, int C, void* stream) {
@@ -181,15 +167,17 @@ ISG_API int isg_scatter_mean_bwd(const float* dagg, const int* dst,
   return (int)cudaGetLastError();
 }
 
-// dx [B*N, C] += scatter of ds by src and dd by dst.
+// out [B*N, C] (dtype out_dt) = base + scatter of ds by src and dd by dst.
 ISG_API int isg_scatter_rows(const float* ds, const float* dd, const int* src,
-                             const int* dst, const float* emask, float* dx,
-                             int B, int N, int E, int C, void* stream) {
+                             const int* dst, const float* emask,
+                             const float* base, void* out, int out_dt, int B,
+                             int N, int E, int C, void* stream) {
   const size_t smem = sizeof(float) * (size_t)N * kSlice;
   dim3 grid(B, (C + kSlice - 1) / kSlice);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  allow_smem(scatter_rows_kernel, smem);
-  scatter_rows_kernel<<<grid, kSlice, smem, st>>>(ds, dd, src, dst, emask, dx,
-                                                  N, E, C);
+  ISG_WITH_T(out_dt, TO,
+      allow_smem(scatter_rows_kernel<TO>, smem);
+      scatter_rows_kernel<TO><<<grid, kSlice, smem, st>>>(
+          ds, dd, src, dst, emask, base, static_cast<TO*>(out), N, E, C));
   return (int)cudaGetLastError();
 }

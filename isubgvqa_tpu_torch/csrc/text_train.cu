@@ -1,7 +1,8 @@
 // Backward kernels of the question stack's training layers.
 //
-// With the shared GEMM's backward forms (gemm_any.cu: isg_gemm_any for dgrad
-// and wgrad, isg_colsum for the bias gradients) they replace the backward
+// With the backward GEMMs (the encoder layer: gemm_any.cu's isg_gemm_any
+// for dgrad and wgrad and isg_colsum for the bias gradients; the decoder
+// layer: gemm_bwd.cu's staged isg_gemm_bwd) they replace the backward
 // Pallas kernels of isubgvqa_tpu/ops/pallas/text_train.py
 // (_make_enc_bwd, _make_dec_bwd, called from _enc_call / _dec_call).
 // The TPU kernels recompute the forward in VMEM; here the forward saves
@@ -33,7 +34,9 @@
 //     dz = r * (g s - mean(g s) - zhat * mean(g s zhat)),
 //   optionally dy = dz * ymask (the dropout mask on the branch that fed
 //   z = x + y * ymask); the scale and bias gradients are summed per block
-//   and finished by isg_reduce_rows, in a fixed order.  Bound: bytes.
+//   into [blocks, 2, D] partials, which the last block to finish (a
+//   counter after a __threadfence) sums in block order: deterministic,
+//   one launch.  Bound: bytes.
 //
 // isg_relu_bwd: dx = dy * keep * (act > 0), with act the saved ReLU
 //   output (the FFN's dropout mask after the ReLU).  Bound: bytes.
@@ -172,8 +175,9 @@ __global__ void ln_bwd_kernel(const TG* __restrict__ g,
                               const float* __restrict__ s,
                               const float* __restrict__ ymask,
                               float* __restrict__ dz, float* __restrict__ dy,
-                              float* __restrict__ part, int M, int D,
-                              float eps) {
+                              float* __restrict__ part,
+                              float* __restrict__ dsb, int* __restrict__ counter,
+                              int M, int D, float eps) {
   extern __shared__ float acc[];         // [2, kLnRows, D] per-warp sums
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int per = (D + 31) / 32;
@@ -239,7 +243,25 @@ __global__ void ln_bwd_kernel(const TG* __restrict__ g,
     const int which = i / D, c = i % D;
     float tot = 0.f;
     for (int w = 0; w < kLnRows; ++w) tot += acc[(which * kLnRows + w) * D + c];
-    part[((long)which * gridDim.x + blockIdx.x) * D + c] = tot;
+    part[((long)blockIdx.x * 2 + which) * D + c] = tot;
+  }
+  // the last block to finish sums every block's partials, blocks in order
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+    if (last) *counter = 0;                // every block has arrived: reset
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < 2 * D; i += blockDim.x) {
+    float tot = 0.f;
+#pragma unroll 8
+    for (int b = 0; b < (int)gridDim.x; ++b)
+      tot += __ldcg(&part[(long)b * 2 * D + i]);
+    dsb[i] = tot;
   }
 }
 
@@ -284,13 +306,15 @@ ISG_API int isg_attention_bwd(const void* q, int q_rs, const void* k,
   return (int)cudaGetLastError();
 }
 
-// dz (and dy = dz * ymask) of LN over z [M, D] f32 from g; part receives
-// [2, blocks, D] partial sums of the scale and bias gradients.  blocks <=
+// dz (and dy = dz * ymask) of LN over z [M, D] f32 from g, and dsb [2, D]
+// the scale and bias gradients; part is [blocks, 2, D] scratch for the
+// blocks' partial sums, counter one zeroed int (left zeroed).  blocks <=
 // ceil(M / 8); the caller sizes part for it.
 ISG_API int isg_ln_bwd(const void* g, int g_dt, const float* z,
                        const float* s, const float* ymask,
-                       float* dz, float* dy, float* part, int blocks, int M,
-                       int D, float eps, void* stream) {
+                       float* dz, float* dy, float* part, float* dsb,
+                       int* counter, int blocks, int M, int D, float eps,
+                       void* stream) {
   if (D > 1024 || blocks < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * 2 * kLnRows * (size_t)D;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -298,11 +322,13 @@ ISG_API int isg_ln_bwd(const void* g, int g_dt, const float* z,
       if (D <= 512) {
         allow_smem(ln_bwd_kernel<TG, 16>, smem);
         ln_bwd_kernel<TG, 16><<<blocks, 32 * kLnRows, smem, st>>>(
-            static_cast<const TG*>(g), z, s, ymask, dz, dy, part, M, D, eps);
+            static_cast<const TG*>(g), z, s, ymask, dz, dy, part, dsb,
+            counter, M, D, eps);
       } else {
         allow_smem(ln_bwd_kernel<TG, 32>, smem);
         ln_bwd_kernel<TG, 32><<<blocks, 32 * kLnRows, smem, st>>>(
-            static_cast<const TG*>(g), z, s, ymask, dz, dy, part, M, D, eps);
+            static_cast<const TG*>(g), z, s, ymask, dz, dy, part, dsb,
+            counter, M, D, eps);
       });
   return (int)cudaGetLastError();
 }

@@ -65,3 +65,21 @@ def build_model(cfg: Config, vocab, device=None,
     for p in model.parameters():
         p.requires_grad_(False)
     return model
+
+
+def apply_clip_text_tables(model: ISubGVQA, tables) -> None:
+    """Overwrite the question encoder's token and position tables with
+    the pretrained CLIP tables of :func:`..convert.load_clip_text_tables`
+    (the port of ``isubgvqa_tpu/models/build.py:apply_clip_text_tables``;
+    in place).  A table of another shape raises."""
+    emb = model.text_vocab_embedding
+    for name in ("token_embedding", "position_embedding"):
+        dst = getattr(emb, name).weight
+        src = torch.as_tensor(tables[name], dtype=torch.float32)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(
+                f"pretrained CLIP {name} shape {tuple(src.shape)} does not "
+                f"match the model's table {tuple(dst.shape)}: check "
+                f"text_vocab_size / question-position config")
+        with torch.no_grad():
+            dst.copy_(src.to(dst.dtype))

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "isg_gemm_sm90": [P, I, P, I, P, P, P, I, I, I, I, I, P],
     "isg_gemm_ln_sm90": [P, I, P, I, P, P, I] + [P] * 8 + [I, I, I, I, F, P],
     "isg_gemm_any": [P, I, I, P, P, I, I, P, I, I, I, I, I, P, P, I, P],
+    "isg_gemm_bwd": [ctypes.c_char_p, I, I, P],
     "isg_reduce_rows": [P, P, I, I, I, I, I, P],
     "isg_colsum": [P, I, I, I, P, I, P, I, P],
     "isg_attention": [P, I, P, I, P, I, P, P, P, P, I, I, I, I, I, I, F, I,
@@ -52,15 +53,14 @@ _SIGNATURES = {
     "isg_attention_bwd": [P, I, P, I, P, I, P, P, P, I, P, I, P, I, P, I, I,
                           I, I, I, I, F, I, P],
     "isg_residual_ln": [P, I, P, P, P, P, P, P, P, P, P, I, I, I, F, P],
-    "isg_ln_bwd": [P, I, P, P, P, P, P, P, I, I, I, F, P],
+    "isg_ln_bwd": [P, I, P, P, P, P, P, P, P, P, I, I, I, F, P],
     "isg_relu_bwd": [P, P, I, P, P, L, P],
     "isg_scatter_mean": [P, P, P, P, I, I, I, I, I, P],
     "isg_graph_index": [P, P, P, P, P, I, I, I, P],
     "isg_scatter_mean_bwd": [P, P, P, P, I, I, I, I, P],
-    "isg_scatter_rows": [P, P, P, P, P, P, I, I, I, I, P],
+    "isg_scatter_rows": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     "isg_graph_norm": [P, P, P, P, I, P, P, P, P, I, I, I, I, F, P],
     "isg_graph_norm_bwd": [P, I, P, P, P, P, P, P, I, I, I, F, P],
-    "isg_gelu_bwd": [P, P, P, L, P],
     "isg_instr_gelu": [P, P, P, I, I, I, I, P],
     "isg_gat_edge": [P, P, I, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
                      P],

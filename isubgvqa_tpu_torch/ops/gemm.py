@@ -8,7 +8,14 @@
   bf16 products (``csrc/gemm_sm90.cu``: TMA and wgmma).
 * :func:`gemm` launches the f32 products (``csrc/gemm.cu``, 3xTF32 on the
   tensor cores) and :func:`gemm_any` / :func:`dgrad` / :func:`wgrad` /
-  :func:`colsum` the backward forms (``csrc/gemm_any.cu``).
+  :func:`colsum` the backward forms of the GAT conv and the encoder layer
+  (``csrc/gemm_any.cu``).
+* :func:`bwd_stage` launches one stage of the MetaLayer's or the decoder
+  layer's backward chain, every dgrad (:func:`stage_dgrad`) and wgrad
+  (:func:`stage_wgrad`) of it, with the bias gradients and the
+  activation's derivative in the epilogue (``csrc/gemm_bwd.cu``: bf16x3
+  on wgmma for a bf16 model, 3xTF32 on mma.sync for an f32 one);
+  :func:`bwd_stage_plain` is its plain twin.
 * :func:`product` sends a layer's product to :func:`gemm_gather` for a
   bf16 weight and to :func:`gemm` for an f32 one.
 
@@ -21,16 +28,18 @@ kernels).  Rounding goes through :func:`ste`, whose gradient passes
 unrounded, as the Pallas backward kernels take their gradients in f32.
 
 :func:`split_tf32` and :func:`tf32x3_mm` are the 3xTF32 arithmetic in
-plain PyTorch.  The plain versions' products go through
-:func:`plain_product`, whose backward (the dgrad and wgrad products)
-calls :data:`backward_product`: a plain f32 matmul by default, so the
-plain versions stay the f32 oracle, or :func:`tf32x3_mm` when a test
-routes them through the kernels' arithmetic.
+plain PyTorch, :func:`split_bf16x3` and :func:`bf16x3_mm` the bf16x3.
+The plain versions' products go through :func:`plain_product`, whose
+backward (the dgrad and wgrad products) calls :data:`backward_product`:
+a plain f32 matmul by default, so the plain versions stay the f32
+oracle, or :func:`tf32x3_mm` when a test routes them through the
+kernels' arithmetic.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+import struct
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -360,6 +369,28 @@ def tf32x3_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (al @ bh + ah @ bl) + ah @ bh
 
 
+def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """``(x1, x2, x3)`` with ``x ~= x1 + x2 + x3``, f32 tensors of bf16
+    values: ``x1`` is ``x`` rounded to bf16 (to nearest even), ``x2`` the
+    same rounding of ``x - x1`` and ``x3`` of ``x - x1 - x2``; together
+    they carry f32's 24 mantissa bits."""
+    xf = x.float()
+    x1 = xf.to(torch.bfloat16).float()
+    r = xf - x1
+    x2 = r.to(torch.bfloat16).float()
+    return x1, x2, (r - x2).to(torch.bfloat16).float()
+
+
+def bf16x3_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the staged backward GEMM's bf16x3 core takes it: the
+    f32 ``a`` split into three bf16 planes, ``b`` exact in bf16, the
+    products ``a3 b + a2 b + a1 b`` (each exact in f32) summed in f32."""
+    a1, a2, a3 = split_bf16x3(a)
+    bf = b.float()
+    return (a3 @ bf + a2 @ bf) + a1 @ bf
+
+
 # The dgrad / wgrad products of :func:`plain_product`'s backward.
 backward_product = torch.matmul
 
@@ -399,17 +430,26 @@ def _split_k(tiles: int, k: int) -> int:
 
 
 _COUNTERS = {}
+_COUNTER_SLOTS = 1024     # the last one: finish_counter's
 
 
 def _tile_counters(device: torch.device) -> torch.Tensor:
-    """Per-tile arrival counters of the split-K epilogue, zeroed once per
-    device; each call's last block resets the counters it used, so they
-    stay zeroed between the calls on a stream."""
+    """Arrival counters of the kernels whose last block finishes a sum
+    (the split-K epilogues, one a tile; the LayerNorm backward, the last
+    slot), zeroed once per device; each call's last block resets the
+    counters it used, so they stay zeroed between the calls on a
+    stream."""
     t = _COUNTERS.get(device)
     if t is None:
-        t = _COUNTERS[device] = torch.zeros(_MAX_SPLIT_TILES,
+        t = _COUNTERS[device] = torch.zeros(_COUNTER_SLOTS,
                                             dtype=torch.int32, device=device)
     return t
+
+
+def finish_counter(device: torch.device) -> int:
+    """Address of the counter a kernel's last block uses to finish a sum
+    over its blocks (one launch at a time on a stream)."""
+    return _tile_counters(device).data_ptr() + 4 * (_COUNTER_SLOTS - 1)
 
 
 def gemm_any(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int, *,
@@ -512,3 +552,245 @@ def linear_plain(x: torch.Tensor, weight: torch.Tensor,
     elif act == "relu":
         y = torch.relu(y)
     return y
+
+
+# ------------------------------------------------ staged backward GEMM
+
+class Out(NamedTuple):
+    """A column range of a dgrad's result: ``out = act'(acc + add)``, with
+    ``act'`` None, ``"gelu"`` (exact GELU's derivative at the f32
+    pre-activation ``pre``) or ``"relu"`` (``(pre > 0) * keep``, ``pre``
+    the saved ReLU output, ``keep`` its dropout mask or None).  Every
+    tensor is ``[M, width]`` with unit column stride, f32 or bf16; ``out``
+    may be ``add`` (an accumulation in place)."""
+    out: torch.Tensor
+    add: Optional[torch.Tensor] = None
+    act: Optional[str] = None
+    pre: Optional[torch.Tensor] = None
+    keep: Optional[torch.Tensor] = None
+
+
+class Problem(NamedTuple):
+    """One product of a backward stage (:func:`stage_dgrad`,
+    :func:`stage_wgrad`)."""
+    kind: int                     # 0 dgrad, 1 wgrad
+    g: torch.Tensor               # the f32 gradient
+    segs: Tuple                   # ((S, idx | None), ...)
+    outs: Tuple                   # (Out, ...)
+    bias: Optional[torch.Tensor]
+
+
+def stage_dgrad(g: torch.Tensor, weight: torch.Tensor,
+                outs: Sequence[Out]) -> Problem:
+    """``g [M, N'] @ weight [N', K]``, the input gradient of ``x @ W^T``
+    (``weight`` may be a row range of a wider weight), its K columns
+    split over ``outs`` in order."""
+    return Problem(0, g, ((weight, None),), tuple(outs), None)
+
+
+def stage_wgrad(g: torch.Tensor, segs: Segments, out: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> Problem:
+    """``g [rows, N']^T @ [x_0[idx_0] | x_1[idx_1] | ...]`` into ``out
+    [N', sum K_s]`` (f32), the weight gradient of a product whose input
+    is the segments side by side (row ``idx[r]`` of ``x``, a zero row
+    where it is negative); ``bias [N']`` (f32) receives the column sums
+    of ``g``, the bias gradient."""
+    return Problem(1, g, tuple(segs), (Out(out),), bias)
+
+
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """The exact GELU's derivative, ``Phi(x) + x phi(x)``."""
+    return (0.5 * (1.0 + torch.erf(x * 0.7071067811865476))
+            + x * 0.3989422804014327 * torch.exp(-0.5 * x * x))
+
+
+def bwd_stage_plain(*problems: Problem) -> None:
+    """:func:`bwd_stage` in plain PyTorch: each product in the kernel's
+    arithmetic (:func:`bf16x3_mm` for a bf16 S, :func:`tf32x3_mm` for an
+    f32 one), the bias as the f32 column sum, then the epilogue."""
+    for pr in problems:
+        mm = bf16x3_mm if pr.segs[0][0].dtype == torch.bfloat16 \
+            else tf32x3_mm
+        g = pr.g.float()
+        if pr.kind == 0:
+            y = mm(g, pr.segs[0][0].float())
+        else:
+            y = mm(g.t(), gather_segments(pr.segs).float())
+            if pr.bias is not None:
+                pr.bias.copy_(g.sum(0))
+        col = 0
+        for o in pr.outs:
+            w = o.out.shape[1]
+            v = y[:, col:col + w]
+            if o.add is not None:
+                v = v + o.add.float()
+            if o.act == "gelu":
+                v = v * gelu_grad(o.pre.float())
+            elif o.act == "relu":
+                v = torch.where(o.pre.float() > 0, v, torch.zeros_like(v))
+                if o.keep is not None:
+                    v = v * o.keep.float()
+            o.out.copy_(v)
+            col += w
+
+
+# S's dtype -> (core code, block rows, block columns, reduction slice,
+# blocks the card holds at once)
+_BWD_CORES = {torch.bfloat16: (1, 64, 304, 64, 132),
+              torch.float32: (0, 64, 128, 32, 264)}
+_BWD_ACT = {None: 0, "gelu": 1, "relu": 2}
+_BWD_DT = {torch.float32: 0, torch.bfloat16: 1}
+_BWD_RULE = ("an f32 gradient G, S tensors of one type (bf16 or f32) whose "
+             "row pitches and column starts are multiples of 4 elements, "
+             "N a multiple of 4, a dgrad's K and a wgrad's M multiples of "
+             "4, 16-byte aligned G")
+_BWD_NONE = (0, 0, 0)
+
+
+def _bwd_ref(t: Optional[torch.Tensor], rows: int):
+    """``(pointer, row pitch, dtype code)`` of a contiguous CUDA ``[rows,
+    *]`` f32 or bf16 tensor (a row range of one is fine)."""
+    if t is None:
+        return _BWD_NONE
+    if not (t.is_cuda and t.is_contiguous() and t.shape[0] == rows
+            and t.dtype in _BWD_DT):
+        raise ValueError(f"bwd_stage takes contiguous CUDA f32 or bf16 "
+                         f"[{rows}, *] tensors, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    return t.data_ptr(), t.shape[1], _BWD_DT[t.dtype]
+
+
+def bwd_stage(*problems: Problem) -> None:
+    """One stage of a training layer's backward: every problem's product
+    and epilogue in one launch (``csrc/gemm_bwd.cu:isg_gemm_bwd``), the
+    wgrads' blocks first.  Every tensor is contiguous (a row range of a
+    contiguous tensor is).  On CPU tensors it runs
+    :func:`bwd_stage_plain`; on CUDA tensors it launches the kernel or
+    raises.  Few attribute reads: a decoder layer's backward issues six
+    of these."""
+    if not problems[0].g.is_cuda:
+        return bwd_stage_plain(*problems)
+    if len(problems) > 4:
+        raise ValueError("bwd_stage takes at most four problems")
+    if len(problems) > 1:
+        problems = ([pr for pr in problems if pr.kind]
+                    + [pr for pr in problems if not pr.kind])
+    s_dt = problems[0].segs[0][0].dtype
+    if s_dt not in _BWD_CORES:
+        raise TypeError(f"bwd_stage takes {_BWD_RULE}")
+    core, bm, bn, bk, at_once = _BWD_CORES[s_dt]
+    words = []
+    splits = []            # (word index of the work pointer, floats, tiles)
+    block0 = 0
+    for pr in problems:
+        g, bias = pr.g, pr.bias
+        gp, ldg, gdt = _bwd_ref(g, g.shape[0])
+        if gdt:
+            raise TypeError(f"bwd_stage takes {_BWD_RULE}")
+        if pr.kind:
+            k, m = g.shape
+        else:
+            m, k = g.shape
+        words += [pr.kind, gp, ldg, m, 0, k,
+                  0 if bias is None else _bwd_ref(bias[:, None], m)[0]]
+        ni = len(words) - 3                       # N, known below
+        n = 0
+        for x, idx in pr.segs:
+            xp, ldx, _ = _bwd_ref(x, x.shape[0])
+            if x.dtype != s_dt or x.shape[0] * ldx >= 2 ** 31:
+                raise TypeError(f"bwd_stage takes {_BWD_RULE}; S under 2^31 "
+                                f"elements")
+            if idx is not None and not (idx.dtype == torch.int32
+                                        and idx.is_contiguous()
+                                        and idx.is_cuda
+                                        and idx.shape[0] == k):
+                raise ValueError(f"bwd_stage: int32 [{k}] row index "
+                                 f"expected")
+            words += [xp, 0 if idx is None else idx.data_ptr(), ldx, n]
+            n += x.shape[1]
+        words[ni] = n
+        words += [0, 0, 0, 0] * (3 - len(pr.segs)) + [len(pr.segs)]
+        n0 = 0
+        for out, add, act, pre, keep in pr.outs:
+            w = out.shape[1]
+            if (add is not None and add.shape[1] != w
+                    or pre is not None and pre.shape[1] != w
+                    or keep is not None and keep.shape[1] != w):
+                raise ValueError("bwd_stage: epilogue inputs must match "
+                                 "their output's width")
+            words += _bwd_ref(out, m)
+            words += _BWD_NONE if add is None else _bwd_ref(add, m)
+            words.append(_BWD_ACT[act])
+            words += _BWD_NONE if pre is None else _bwd_ref(pre, m)
+            words += _BWD_NONE if keep is None else _bwd_ref(keep, m)
+            words.append(n0)
+            n0 += w
+        if n0 != n:
+            raise ValueError(f"bwd_stage: outputs of {n0} columns for a "
+                             f"product of {n}")
+        # tiles, and a wgrad's reduction over rows split so that its blocks
+        # about fill the card once, at least 512 rows a slice
+        nw = n + (bias is not None)
+        tm, tn = -(-m // bm), -(-nw // bn)
+        z = max(1, min(at_once // (tm * tn), k // 512, 64)) if pr.kind else 1
+        kchunk = -(-(-(-k // z)) // bk) * bk
+        z = -(-k // kchunk)
+        words += [0] * 14 * (3 - len(pr.outs)) + [len(pr.outs), tn, z,
+                                                   kchunk, block0, 0, 0]
+        if z > 1:      # partial tiles at a row pitch of N + 1 rounded to 4
+            splits.append((len(words) - 2, z * m * (-(-nw // 4) * 4),
+                           tm * tn))
+        block0 += tm * tn * z
+    if splits:
+        dev = problems[0].g.device
+        if sum(t for _, _, t in splits) > _COUNTER_SLOTS - 1:
+            raise ValueError("bwd_stage: too many split tiles")
+        work = torch.empty(sum(f for _, f, _ in splits), dtype=torch.float32,
+                           device=dev)
+        wp, cp = work.data_ptr(), _tile_counters(dev).data_ptr()
+        for i, floats, tiles in splits:
+            words[i], words[i + 1] = wp, cp
+            wp += 4 * floats
+            cp += 4 * tiles
+    _lib.call("isg_gemm_bwd", struct.pack(f"{len(words)}q", *words),
+              len(problems), core, invalid=_BWD_RULE)
+
+
+def bwd_stage_checked(*problems: Problem) -> dict:
+    """:func:`bwd_stage` and, first, its plain twin on copies of every
+    output, epilogue addend and bias (an output that is also its addend
+    keeps that: the copy is shared).  Returns the worst error by output
+    type, ``{"float32": e, "bfloat16": e}``: an output's max abs error over
+    its scale, the twin's max abs (at least 1), or for a bias gradient the
+    largest sum of absolute values it adds up (a bias that cancels to
+    rounding noise, as the one before GraphNorm does, holds noise of that
+    size); a NaN sticks.  For checks on the card; the layers call
+    :func:`bwd_stage`."""
+    copies = {}
+
+    def copy(t):
+        if t is None:
+            return None
+        if id(t) not in copies:
+            copies[id(t)] = (t, t.clone())
+        return copies[id(t)][1]
+
+    twins = [pr._replace(
+        outs=tuple(o._replace(out=copy(o.out), add=copy(o.add))
+                   for o in pr.outs), bias=copy(pr.bias))
+        for pr in problems]
+    bwd_stage_plain(*twins)
+    bwd_stage(*problems)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for pr, tw in zip(problems, twins):
+        pairs = [(o.out, t.out, 0.0) for o, t in zip(pr.outs, tw.outs)]
+        if pr.bias is not None:
+            pairs.append((pr.bias, tw.bias,
+                          pr.g.abs().sum(0).max().item()))
+        for got, want, terms in pairs:
+            scale = max(1.0, want.float().abs().max().item(), terms)
+            err = (got.float() - want.float()).abs().max().item() / scale
+            key = str(got.dtype)[6:]
+            if not err <= worst[key]:
+                worst[key] = err
+    return worst

@@ -3,36 +3,51 @@ with live dropout, forward and backward on the card.
 
 Replaces ``isubgvqa_tpu/ops/pallas/text_train.py:fused_encoder_layer_train``
 (``_enc_call``: ``_make_enc_fwd`` / ``_make_enc_bwd``) and
-``fused_decoder_layer_train`` (``_dec_call``).
+``fused_decoder_layer_train`` (``_dec_call``: ``_make_dec_fwd`` /
+``_make_dec_bwd``).
 
 Each is a :class:`torch.autograd.Function`:
 
-* forward — the eval layer's launches (:func:`.text_kernel.encoder_launch`)
-  with the dropout keep masks applied where the Pallas kernel applies
-  them (the attention probabilities inside ``isg_attention``, the two
-  residual branches inside ``isg_residual_ln``, the FFN activation in the
-  shared GEMM's epilogue), keeping what the backward reads: q, k, v at
-  the model dtype, the softmax probabilities, the pre-LN sums, the FFN
-  activation.  The TPU recomputes those in VMEM instead; on the H100 the
-  largest saved tensor of a layer at B = 256 questions, L = 32 is the
-  FFN activation (16 MB in bf16), so saving is cheap;
-* backward — hand-written launches only: ``isg_ln_bwd`` (one warp per
-  row), the shared GEMM's dgrad and wgrad forms (split-K, the slices
-  summed in order by each tile's last block), ``isg_colsum`` for the
-  biases, ``isg_relu_bwd`` and ``isg_attention_bwd`` (one block per
-  question and head).  Gradients are f32 throughout, as in the Pallas
-  backward.
+* forward — the eval layer's launches (:func:`.text_kernel.encoder_launch`,
+  :func:`.text_kernel.decoder_launch`) with the dropout keep masks
+  applied where the Pallas kernel applies them (the attention
+  probabilities inside the attention core, the residual branches inside
+  the LayerNorm epilogue, the FFN activation in the GEMM's epilogue),
+  keeping what the backward reads: q, k, v at the model dtype, the
+  softmax probabilities, the pre-LN sums, the FFN activation.  The TPU
+  recomputes those in VMEM instead; on the H100 the largest saved tensor
+  of a layer at B = 256 questions, L = 32 is the FFN activation (16 MB in
+  bf16), so saving is cheap;
+* backward — hand-written launches only.  The encoder layer
+  (:func:`encoder_backward`): ``isg_ln_bwd`` (one warp per row, its scale
+  and bias gradients summed by its last block), the shared
+  backward GEMM's dgrad and wgrad forms (``csrc/gemm_any.cu``, split-K,
+  the slices summed in order by each tile's last block), ``isg_colsum``
+  for the biases, ``isg_relu_bwd`` and ``isg_attention_bwd`` (one block
+  per question and head).  The decoder layer (:func:`decoder_backward`):
+  eleven launches, the three LayerNorm backwards, the two attention
+  backwards, and six stages of the
+  staged backward GEMM (:func:`.gemm.bwd_stage`, ``csrc/gemm_bwd.cu``):
+  each product's weight and bias gradient and its input gradient in one
+  launch, ReLU's derivative times the keep mask, the accumulation into
+  the residual gradient and the output casts of ``dtgt`` / ``dmem`` in
+  the epilogue, the cross-attention's q and kv halves in one launch.
+  Gradients are f32 throughout, as in the Pallas backward.
 
-Bound on the H100: the products (about 3 x 2 x 12 D^2 FLOPs per token
-for forward and backward) make the layer operation-bound; the backward's
-products are f32 by design and run in the 3xTF32 form on the TF32
-tensor cores (``csrc/gemm_any.cu``), so they, not bytes, set its time.
+Bound on the H100: the encoder layer's backward products (about 3 x 2 x
+12 D^2 FLOPs per token for forward and backward) make it
+operation-bound, run in the 3xTF32 form on the TF32 tensor cores.  The
+decoder layer's backward is small (3.2e10 FLOP at B = 256, L = 32: tens
+of microseconds of tensor-core time) and is bound by the host's issue of
+its launches, which the staged form keeps to eleven.
 
 The plain version is the eval plain (:func:`.text_kernel.
 fused_encoder_layer_plain`) with the masks, differentiated by autograd;
 its roundings go through :func:`.gemm.ste`, so its gradients are f32
 like the kernels'.  On a CPU tensor the wrapper runs it; on a CUDA
-tensor it launches the kernels or raises.
+tensor it launches the kernels or raises.  :func:`decoder_backward` runs
+on CPU tensors too, through each launch's plain twin
+(:func:`decoder_saved_plain` makes the forward's saved tensors there).
 """
 
 from __future__ import annotations
@@ -43,10 +58,12 @@ from typing import Optional
 import torch
 
 from . import _lib
-from .gemm import colsum, dgrad, reduce_rows, wgrad
-from .text_kernel import (DEC_KEYS, ENC_KEYS, LN_EPS, decoder_launch,
-                          encoder_launch, fused_decoder_layer_plain,
-                          fused_encoder_layer_plain, masks_at)
+from .gemm import (Out, bwd_stage, colsum, dgrad, finish_counter,
+                   linear_plain, stage_dgrad, stage_wgrad, wgrad)
+from .text_kernel import (DEC_KEYS, ENC_KEYS, LN_EPS, _mul, _rows,
+                          decoder_launch, encoder_launch,
+                          fused_decoder_layer_plain,
+                          fused_encoder_layer_plain, ln_plain, masks_at)
 
 
 def ship_params(params: dict, dtype: torch.dtype) -> dict:
@@ -75,17 +92,32 @@ def ln_bwd(g, z, scale, ymask=None):
     """Backward of ``LN(z)`` with ``z = x + y * ymask``: returns
     ``(dz, dy, d scale, d bias)`` (``dy`` is ``dz`` without a mask)."""
     m, d = z.shape
-    g = g.reshape(m, d).contiguous()
+    g = g.reshape(m, d)
+    if not z.is_cuda:
+        gf = g.float()
+        mean = z.mean(-1, keepdim=True)
+        var = torch.clamp((z * z).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        r = torch.rsqrt(var + LN_EPS)
+        zh = (z - mean) * r
+        gs = gf * scale
+        dz = r * (gs - gs.mean(-1, keepdim=True)
+                  - zh * (gs * zh).mean(-1, keepdim=True))
+        return (dz, dz if ymask is None else dz * ymask, (gf * zh).sum(0),
+                gf.sum(0))
+    g = g.contiguous()
     dz = torch.empty((m, d), dtype=torch.float32, device=z.device)
     dy = torch.empty_like(dz) if ymask is not None else None
-    blocks = max(1, min(264, -(-m // 8)))
-    part = torch.empty((2, blocks, d), dtype=torch.float32, device=z.device)
+    # few enough blocks that the last one sums their partials quickly
+    blocks = max(1, min(64, -(-m // 8)))
+    part = torch.empty((blocks, 2, d), dtype=torch.float32, device=z.device)
+    dsb = torch.empty((2, d), dtype=torch.float32, device=z.device)
     _lib.check_cuda(g, z, scale, ymask)
     _lib.call("isg_ln_bwd", g.data_ptr(), _lib.dt(g), z.data_ptr(),
               scale.data_ptr(), _lib.ptr(ymask), dz.data_ptr(),
-              _lib.ptr(dy), part.data_ptr(), blocks, m, d, LN_EPS)
-    return (dz, dy if dy is not None else dz, reduce_rows(part[0]),
-            reduce_rows(part[1]))
+              _lib.ptr(dy), part.data_ptr(), dsb.data_ptr(),
+              finish_counter(z.device), blocks, m, d, LN_EPS)
+    return dz, dy if dy is not None else dz, dsb[0], dsb[1]
 
 
 def relu_bwd(dy, act, keep=None):
@@ -105,6 +137,25 @@ def attention_bwd(q, q_off, q_rs, kv, k_off, v_off, kv_rs, probs, keep,
     :func:`.text_kernel._attention`)."""
     es, fs = q.element_size(), 4
     dh = d // num_heads
+    if not q.is_cuda:
+        cols = lambda t, off, rs: t.reshape(-1, rs)[:, off:off + d]
+        heads = lambda t, l: t.float().reshape(b, l, num_heads,
+                                               dh).transpose(1, 2)
+        qh = heads(cols(q, q_off, q_rs), lq)
+        kh = heads(cols(kv, k_off, kv_rs), lk)
+        vh = heads(cols(kv, v_off, kv_rs), lk)
+        do = heads(dout, lq)
+        kp = 1.0 if keep is None else keep
+        dpk = (do @ vh.transpose(-1, -2)) * kp
+        ds = probs * (dpk - (dpk * probs).sum(-1, keepdim=True))
+        rows = lambda t, l: t.transpose(1, 2).reshape(b * l, d)
+        scale = 1.0 / math.sqrt(dh)
+        cols(dkv, dv_off, dkv_rs).copy_(rows(
+            (probs * kp).to(q.dtype).float().transpose(-1, -2) @ do, lk))
+        cols(dq, dq_off, dq_rs).copy_(rows(scale * (ds @ kh), lq))
+        cols(dkv, dk_off, dkv_rs).copy_(rows(
+            scale * (ds.transpose(-1, -2) @ qh), lk))
+        return
     _lib.check_cuda(probs, keep, dout, dq, dkv)
     _lib.call("isg_attention_bwd", q.data_ptr() + q_off * es, q_rs,
               kv.data_ptr() + k_off * es, kv_rs, kv.data_ptr() + v_off * es,
@@ -153,44 +204,112 @@ def encoder_backward(g, s, p, num_heads):
     return dgrad(dqkv, p["in_w"], out=dz1, accumulate=True), grads
 
 
-def decoder_backward(g, s, p, num_heads):
-    """Gradients of one decoder layer; returns ``(d tgt, d memory,
-    grads)``, f32 ``[B*T, D]`` and ``[B*L, D]``."""
-    grads = {}
+def decoder_backward(g, s, p, num_heads, dtypes, stage=bwd_stage):
+    """Gradients of one decoder layer from ``g`` (the output's), the
+    forward's ``saved`` ``s`` and the shipped params ``p``: ``(d tgt
+    [B*T, D], d memory [B*L, D])`` at ``dtypes`` (tgt's and memory's) and
+    the f32 parameter gradients.  ``stage`` runs each product stage
+    (:func:`.gemm.bwd_stage`; a check may wrap it)."""
     rt, d = s["tt"].shape
     rm = s["mt"].shape[0]
     b, _, t, l = s["pc"].shape
-    dt2 = _ffn_bwd(g, s["z3"], "n3s", s, p, s["hid"], s["t2t"], s["mf"],
-                   s["m3"], grads)
-    dz2, dca, grads["n2s"], grads["n2b"] = ln_bwd(dt2, s["z2"], p["n2s"],
+    f = p["w1"].shape[0]
+    f32 = dict(dtype=torch.float32, device=s["tt"].device)
+    w = {k: torch.empty(tuple(p[k].shape), **f32)
+         for k in ("w2", "w1", "c_out_w", "c_in_w", "s_out_w", "s_in_w")}
+    bias = {k: torch.empty(tuple(p[k].shape), **f32)
+            for k in ("b2", "b1", "c_out_b", "c_in_b", "s_out_b", "s_in_b")}
+    grads = {**w, **bias}
+    dz3, dy3, grads["n3s"], grads["n3b"] = ln_bwd(g, s["z3"], p["n3s"],
+                                                  s["m3"])
+    df1 = torch.empty((rt, f), **f32)
+    stage(stage_wgrad(dy3, [(s["hid"], None)], w["w2"], bias["b2"]),
+          stage_dgrad(dy3, p["w2"], [Out(df1, act="relu", pre=s["hid"],
+                                         keep=s["mf"])]))
+    stage(stage_wgrad(df1, [(s["t2t"], None)], w["w1"], bias["b1"]),
+          stage_dgrad(df1, p["w1"], [Out(dz3, add=dz3)]))
+    dz2, dca, grads["n2s"], grads["n2b"] = ln_bwd(dz3, s["z2"], p["n2s"],
                                                   s["m2"])
-    grads["c_out_w"] = wgrad(dca, s["o_c"])
-    grads["c_out_b"] = colsum(dca)
-    do_c = dgrad(dca, p["c_out_w"])
-    dq = torch.empty((rt, d), dtype=torch.float32, device=dz2.device)
-    dkv = torch.empty((rm, 2 * d), dtype=torch.float32, device=dz2.device)
+    do_c = torch.empty((rt, d), **f32)
+    stage(stage_wgrad(dca, [(s["o_c"], None)], w["c_out_w"],
+                      bias["c_out_b"]),
+          stage_dgrad(dca, p["c_out_w"], [Out(do_c)]))
+    dq = torch.empty((rt, d), **f32)
+    dkv = torch.empty((rm, 2 * d), **f32)
     attention_bwd(s["q"], 0, d, s["kv"], 0, d, 2 * d, s["pc"], s["kc"], do_c,
                   dq, 0, d, dkv, 0, d, 2 * d, b, t, l, d, num_heads)
-    dwc = torch.empty((3 * d, d), dtype=torch.float32, device=dz2.device)
-    wgrad(dq, s["t1t"], out=dwc[:d])
-    wgrad(dkv, s["mt"], out=dwc[d:])
-    grads["c_in_w"] = dwc
-    grads["c_in_b"] = torch.cat([colsum(dq), colsum(dkv)])
-    dmem = dgrad(dkv, p["c_in_w"][d:])
-    dt1 = dgrad(dq, p["c_in_w"][:d], out=dz2, accumulate=True)
-    dz1, dsa, grads["n1s"], grads["n1b"] = ln_bwd(dt1, s["z1"], p["n1s"],
+    dmem = torch.empty((rm, d), dtype=dtypes[1], device=dq.device)
+    stage(stage_wgrad(dq, [(s["t1t"], None)], w["c_in_w"][:d],
+                      bias["c_in_b"][:d]),
+          stage_wgrad(dkv, [(s["mt"], None)], w["c_in_w"][d:],
+                      bias["c_in_b"][d:]),
+          stage_dgrad(dkv, p["c_in_w"][d:], [Out(dmem)]),
+          stage_dgrad(dq, p["c_in_w"][:d], [Out(dz2, add=dz2)]))
+    dz1, dsa, grads["n1s"], grads["n1b"] = ln_bwd(dz2, s["z1"], p["n1s"],
                                                   s["m1"])
-    grads["s_out_w"] = wgrad(dsa, s["o_s"])
-    grads["s_out_b"] = colsum(dsa)
-    do_s = dgrad(dsa, p["s_out_w"])
-    dqkv = torch.empty((rt, 3 * d), dtype=torch.float32, device=dz2.device)
+    do_s = torch.empty((rt, d), **f32)
+    stage(stage_wgrad(dsa, [(s["o_s"], None)], w["s_out_w"],
+                      bias["s_out_b"]),
+          stage_dgrad(dsa, p["s_out_w"], [Out(do_s)]))
+    dqkv = torch.empty((rt, 3 * d), **f32)
     attention_bwd(s["qkv"], 0, 3 * d, s["qkv"], d, 2 * d, 3 * d, s["ps"],
                   s["ks"], do_s, dqkv, 0, 3 * d, dqkv, d, 2 * d, 3 * d, b, t,
                   t, d, num_heads)
-    grads["s_in_w"] = wgrad(dqkv, s["tt"])
-    grads["s_in_b"] = colsum(dqkv)
-    dtgt = dgrad(dqkv, p["s_in_w"], out=dz1, accumulate=True)
+    dtgt = torch.empty((rt, d), dtype=dtypes[0], device=dq.device)
+    stage(stage_wgrad(dqkv, [(s["tt"], None)], w["s_in_w"], bias["s_in_b"]),
+          stage_dgrad(dqkv, p["s_in_w"], [Out(dtgt, add=dz1)]))
     return dtgt, dmem, grads
+
+
+def _attention_plain(q, k, v, keep, b, lq, lk, num_heads):
+    """The attention core over row-major ``q [B*Lq, D]``, ``k``, ``v
+    [B*Lk, D]`` at the model dtype as :func:`.text_kernel.mha_plain`
+    takes it; returns ``(out [B*Lq, D] at the model dtype, the f32
+    probabilities before the keep mask)``."""
+    d = q.shape[1]
+    dh = d // num_heads
+    heads = lambda x, n: x.float().reshape(b, n, num_heads, dh).transpose(1, 2)
+    qh, kh, vh = heads(q, lq), heads(k, lk), heads(v, lk)
+    probs = torch.softmax((qh @ kh.transpose(-1, -2)) / math.sqrt(dh), -1)
+    pk = probs if keep is None else probs * keep
+    o = (pk.to(q.dtype).float() @ vh).to(q.dtype)
+    return o.transpose(1, 2).reshape(b * lq, d), probs
+
+
+def decoder_saved_plain(tgt, memory, masks, p, num_heads: int = 8):
+    """What :func:`.text_kernel.decoder_launch` saves with ``save=True``
+    (``masks`` as :func:`.text_kernel.masks_at` gives them, ``p``
+    shipped), in plain PyTorch with the same roundings: the CPU twin that
+    :func:`decoder_backward` runs on there."""
+    dtype = memory.dtype
+    b, t, d = tgt.shape
+    l = memory.shape[1]
+    rt = b * t
+    m = masks or {}
+    m1, m2, mf, m3 = (_rows(m.get(k), rt) for k in ("post_sa", "post_ca",
+                                                     "ffn", "post_ffn"))
+    tt = tgt.to(dtype).reshape(rt, d)
+    mt = memory.reshape(b * l, d)
+    kv = linear_plain(mt, p["c_in_w"][d:], p["c_in_b"][d:]).to(dtype)
+    qkv = linear_plain(tt, p["s_in_w"], p["s_in_b"]).to(dtype)
+    o_s, ps = _attention_plain(qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:],
+                               m.get("self_attn"), b, t, t, num_heads)
+    z1 = tt.float() + _mul(linear_plain(o_s, p["s_out_w"], p["s_out_b"]),
+                           m1)
+    t1 = ln_plain(z1, p["n1s"], p["n1b"])
+    t1t = t1.to(dtype)
+    q = linear_plain(t1t, p["c_in_w"][:d], p["c_in_b"][:d]).to(dtype)
+    o_c, pc = _attention_plain(q, kv[:, :d], kv[:, d:], m.get("cross_attn"),
+                               b, t, l, num_heads)
+    z2 = t1 + _mul(linear_plain(o_c, p["c_out_w"], p["c_out_b"]), m2)
+    t2 = ln_plain(z2, p["n2s"], p["n2b"])
+    t2t = t2.to(dtype)
+    hid = _mul(linear_plain(t2t, p["w1"], p["b1"], "relu"), mf).to(dtype)
+    z3 = t2 + _mul(linear_plain(hid, p["w2"], p["b2"]), m3)
+    return dict(tt=tt, mt=mt, ks=m.get("self_attn"), kc=m.get("cross_attn"),
+                m1=m1, m2=m2, mf=mf, m3=m3, qkv=qkv, ps=ps, o_s=o_s, z1=z1,
+                t1t=t1t, q=q, kv=kv, pc=pc, o_c=o_c, z2=z2, t2t=t2t, hid=hid,
+                z3=z3)
 
 
 # ------------------------------------------------------------ functions
@@ -237,12 +356,11 @@ class _DecoderLayerTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         dtgt, dmem, grads = decoder_backward(g, ctx.saved, ctx.p,
-                                             ctx.num_heads)
+                                             ctx.num_heads, ctx.dtypes)
         fused_decoder_layer_train.bwd_launches += 1
         b, l = ctx.saved["pc"].shape[0], ctx.saved["pc"].shape[3]
         del ctx.saved, ctx.p
-        return (dtgt.reshape(g.shape).to(ctx.dtypes[0]),
-                dmem.reshape(b, l, -1).to(ctx.dtypes[1]), None, None,
+        return (dtgt.reshape(g.shape), dmem.reshape(b, l, -1), None, None,
                 *(grads[k].to(dt) for k, dt in zip(DEC_KEYS,
                                                     ctx.param_dtypes)))
 

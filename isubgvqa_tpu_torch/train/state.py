@@ -11,7 +11,8 @@ from typing import Mapping, Optional
 import torch
 
 from ..config import Config
-from ..models.build import build_model
+from ..convert import load_clip_text_tables
+from ..models.build import apply_clip_text_tables, build_model
 from ..models.isubgvqa import ISubGVQA
 from .schedule import Optimizer, make_optimizer
 
@@ -29,9 +30,15 @@ def create_train_state(cfg: Config, vocab, steps_per_epoch: int,
                        seed: Optional[int] = None) -> TrainState:
     """A training model (f32 masters with gradients, on ``device``: the
     card unless the caller asks for another) and its optimizer at the
-    configured schedule (``cfg.lr``, warmup, decay, clip)."""
+    configured schedule (``cfg.lr``, warmup, decay, clip).  A fresh
+    model (no ``state_dict``) starts its question encoder's token and
+    position tables from the pretrained CLIP tables at
+    ``cfg.clip_weights`` when that is set, as the JAX package's
+    ``create_train_state`` does."""
     model = build_model(cfg, vocab, device, state_dict=state_dict, seed=seed,
                         train=True)
+    if cfg.clip_weights and state_dict is None:
+        apply_clip_text_tables(model, load_clip_text_tables(cfg.clip_weights))
     opt = make_optimizer(model.parameters(), cfg.lr, steps_per_epoch,
                          cfg.warmup_epochs, cfg.warmup_start_lr, cfg.lr_gamma,
                          cfg.grad_clip_norm)

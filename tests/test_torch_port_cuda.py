@@ -779,3 +779,183 @@ def test_residual_ln_matches_plain(card, m, d):
             _close(z, zz, 1e-6)
         of2, ot2 = _residual_ln(*args)
         assert torch.equal(of2, of) and torch.equal(ot2, ot)
+
+
+# ------------------------------------------------------------ staged backward
+#
+# The staged backward GEMM (csrc/gemm_bwd.cu) against its plain twin
+# (ops/gemm.py:bwd_stage_plain: the same split, bf16x3 for a bf16 S or
+# 3xTF32 for an f32 one, and the same epilogue), through
+# gemm.bwd_stage_checked: f32 outputs within 2e-5 of their scale (only the
+# order of the f32 sums differs), bf16 outputs within 8e-3 (at most one
+# rounding apart).  Each case runs with a bf16 S (the bf16x3 wgmma core)
+# and an f32 S (the 3xTF32 mma.sync core).
+
+STAGE_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
+STAGE_CASES = ("dgrad_gelu_300", "dgrad_three_outputs_900",
+               "dgrad_relu_keep_add_512", "wgrad_gathered_bias_900",
+               "wgrad_split_2048", "wgrad_two_segments_600",
+               "four_problems", "ragged_small")
+
+
+def _stage_problems(name, dt, g):
+    """The problems of one case: ragged row counts (not multiples of the
+    64-row tile), gathered rows with negative indices, 1-3 weight or
+    output segments, K and N in {300, 512, 600, 900, 2048}."""
+    from isubgvqa_tpu_torch.ops.gemm import Out, stage_dgrad, stage_wgrad
+
+    rnd = lambda *s, k=1.0: k * torch.randn(*s, device=DEVICE, generator=g)
+    new = lambda *s, dtype=torch.float32: torch.empty(*s, dtype=dtype,
+                                                      device=DEVICE)
+    idx = lambda rows, k: torch.randint(-1, rows, (k,), device=DEVICE,
+                                        generator=g, dtype=torch.int32)
+    if name == "dgrad_gelu_300":
+        return [stage_dgrad(rnd(1000, 300), rnd(300, 300, k=0.05).to(dt),
+                            [Out(new(1000, 300), act="gelu",
+                                 pre=rnd(1000, 300))])]
+    if name == "dgrad_three_outputs_900":
+        acc = rnd(777, 300)
+        return [stage_dgrad(rnd(777, 300), rnd(300, 900, k=0.05).to(dt),
+                            [Out(acc, add=acc), Out(new(777, 300)),
+                             Out(new(777, 300, dtype=torch.bfloat16))])]
+    if name == "dgrad_relu_keep_add_512":
+        hid = torch.relu(rnd(1000, 256)).to(dt)
+        keep = (torch.rand(1000, 256, device=DEVICE, generator=g) > 0.1
+                ).float() / 0.9
+        return [stage_dgrad(rnd(1000, 2048), rnd(2048, 512, k=0.02).to(dt),
+                            [Out(new(1000, 256), act="relu", pre=hid,
+                                 keep=keep),
+                             Out(new(1000, 256),
+                                 add=rnd(1000, 256).to(torch.bfloat16))])]
+    if name == "wgrad_gathered_bias_900":
+        x, e = rnd(700, 300).to(dt), rnd(5000, 300).to(dt)
+        return [stage_wgrad(rnd(5000, 300),
+                            [(x, idx(700, 5000)), (x, idx(700, 5000)),
+                             (e, None)], new(300, 900), new(300))]
+    if name == "wgrad_split_2048":
+        return [stage_wgrad(rnd(8192, 512), [(rnd(8192, 2048).to(dt), None)],
+                            new(512, 2048), new(512))]
+    if name == "wgrad_two_segments_600":
+        return [stage_wgrad(rnd(3000, 600), [(rnd(3000, 300).to(dt), None),
+                                             (rnd(3000, 300).to(dt), None)],
+                            new(600, 600))]
+    if name == "four_problems":        # the decoder's cross-attention input
+        dq, dkv = rnd(1024, 512), rnd(2048, 1024)
+        w = rnd(1536, 512, k=0.04).to(dt)
+        dz = rnd(1024, 512)
+        dw, db = new(1536, 512), new(1536)
+        return [stage_wgrad(dq, [(rnd(1024, 512).to(dt), None)], dw[:512],
+                            db[:512]),
+                stage_wgrad(dkv, [(rnd(2048, 512).to(dt), None)], dw[512:],
+                            db[512:]),
+                stage_dgrad(dkv, w[512:], [Out(new(2048, 512,
+                                                   dtype=torch.bfloat16))]),
+                stage_dgrad(dq, w[:512], [Out(dz, add=dz)])]
+    assert name == "ragged_small"
+    return [stage_wgrad(rnd(37, 12), [(rnd(37, 16).to(dt), None)],
+                        new(12, 16), new(12)),
+            stage_dgrad(rnd(20, 12), rnd(12, 16).to(dt),
+                        [Out(new(20, 8), act="gelu", pre=rnd(20, 8)),
+                         Out(new(20, 8))])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16x3", "tf32x3"])
+@pytest.mark.parametrize("case", STAGE_CASES)
+def test_gemm_bwd_matches_plain_twin(card, case, s_dtype):
+    from isubgvqa_tpu_torch.ops import gemm
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    errs = gemm.bwd_stage_checked(*_stage_problems(case, s_dtype, g))
+    torch.cuda.synchronize()
+    for k, tol in STAGE_TOL.items():
+        assert errs[k] <= tol, (case, errs)
+    assert int(gemm._tile_counters(torch.device(DEVICE)).abs().sum()) == 0
+    if case == "wgrad_split_2048":       # split-K: the same bits every run
+        pr = _stage_problems(case, s_dtype,
+                             torch.Generator(device=DEVICE).manual_seed(6))
+        gemm.bwd_stage(*pr)
+        first = pr[0].outs[0].out.clone(), pr[0].bias.clone()
+        gemm.bwd_stage(*pr)
+        assert torch.equal(pr[0].outs[0].out, first[0])
+        assert torch.equal(pr[0].bias, first[1])
+
+
+@pytest.mark.gpu
+def test_gemm_bwd_rejects_what_it_cannot_take(card):
+    from isubgvqa_tpu_torch.ops import gemm
+    from isubgvqa_tpu_torch.ops.gemm import Out, stage_dgrad, stage_wgrad
+
+    f32 = lambda *s: torch.randn(*s, device=DEVICE)
+    bf = lambda *s: f32(*s).to(torch.bfloat16)
+    # an f32 S beside a bf16 one: the bf16x3 core takes bf16 S only
+    with pytest.raises(TypeError):
+        gemm.bwd_stage(stage_wgrad(f32(64, 32), [(bf(64, 16), None)],
+                                   f32(32, 16)),
+                       stage_dgrad(f32(64, 32), f32(32, 16),
+                                   [Out(f32(64, 16))]))
+    with pytest.raises(TypeError):                      # a bf16 gradient
+        gemm.bwd_stage(stage_dgrad(bf(64, 32), bf(32, 16),
+                                   [Out(f32(64, 16))]))
+    with pytest.raises(ValueError):                     # N = 18: not in 4s
+        gemm.bwd_stage(stage_dgrad(f32(64, 32), bf(32, 18),
+                                   [Out(f32(64, 18))]))
+    with pytest.raises(ValueError):                     # outputs of 12 of 16
+        gemm.bwd_stage(stage_dgrad(f32(64, 32), bf(32, 16),
+                                   [Out(f32(64, 12))]))
+    with pytest.raises(ValueError):                     # five problems
+        gemm.bwd_stage(*[stage_dgrad(f32(64, 32), bf(32, 16),
+                                     [Out(f32(64, 16))])] * 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_staged_backward_launches_match_twins(card, dtype):
+    """Each of the six staged launches of the MetaLayer's and of the
+    decoder layer's backward against its plain twin, on the forward's
+    saved tensors."""
+    from isubgvqa_tpu_torch.ops import gemm
+    from isubgvqa_tpu_torch.ops.metalayer_kernel import metalayer_launch
+    from isubgvqa_tpu_torch.ops.text_kernel import decoder_launch, masks_at
+
+    errs = []
+
+    def stage(*problems):
+        errs.append(gemm.bwd_stage_checked(*problems))
+
+    torch.manual_seed(2)
+    rng = np.random.default_rng(13)
+    b, n, e = 3, 16, 48
+    nm, em, src, dst = graphs(rng, b, n, e)
+    h, ea = randn(b, n, C, dtype=dtype), randn(b, e, C, dtype=dtype)
+    mp = text_train.ship_params(SceneGraphEncoder(10, C).kernel_params(),
+                                dtype)
+    mp = {k: v.to(DEVICE) for k, v in mp.items()}
+    _, _, s = metalayer_launch(h, ea, src, dst, em, nm, mp, save=True)
+    dx, de, _ = metalayer_train.metalayer_backward(
+        randn(b, n, C, dtype=dtype), randn(b, e, C, dtype=dtype), s, mp,
+        (dtype, dtype), stage=stage)
+    assert dx.dtype == dtype and de.dtype == dtype
+    l, t = 16, 4
+    keep = lambda *s: (torch.rand(*s, device=DEVICE) > 0.1).float() / 0.9
+    masks = masks_at({"self_attn": keep(b, TEXT_HEADS, t, t),
+                      "post_sa": keep(b, t, D),
+                      "cross_attn": keep(b, TEXT_HEADS, t, l),
+                      "post_ca": keep(b, t, D), "ffn": keep(b, t, FF),
+                      "post_ffn": keep(b, t, D)}, dtype)
+    dp = text_train.ship_params(DecoderLayer(D, FF).kernel_params(), dtype)
+    dp = {k: v.to(DEVICE) for k, v in dp.items()}
+    _, s = decoder_launch(randn(b, t, D, dtype=dtype),
+                          randn(b, l, D, dtype=dtype), dp, TEXT_HEADS, None,
+                          masks, save=True)
+    dtgt, dmem, _ = text_train.decoder_backward(
+        randn(b, t, D, dtype=dtype), s, dp, TEXT_HEADS, (dtype, dtype),
+        stage=stage)
+    assert dtgt.dtype == dtype and dmem.dtype == dtype
+    torch.cuda.synchronize()
+    assert len(errs) == 12
+    for err in errs:
+        for k, tol in STAGE_TOL.items():
+            assert err[k] <= tol, errs
