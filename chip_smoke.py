@@ -60,7 +60,20 @@ script exits non-zero):
 9. train step, kernels against plain: one f32 step on one batch through
    both paths from the same weights, masks and noise (loss, grad norm,
    node mask, every gradient), and the same in bf16 (loss, grad norm);
-then the per-kernel JSON line (all eight kernels) and the final
+10. bench: the port's bench (``isubgvqa_tpu_torch.bench``) as its users
+    run it: first the whole forward, kernel path against plain path, on
+    one B = 2048 batch of the (128, 32) bucket (f32: logits within 1e-4,
+    node mask identical; bf16: no top-1 disagreement where the plain
+    path's margin exceeds twice the logit difference); then
+    ``bench_inference`` at B = 2048 over all eight buckets (at least 4
+    timed batches each; one more chunk of each profiled for the device's
+    busy share and time by kernel), one epoch of ``bench_e2e`` and
+    ``bench_train_step`` at 256, each result's JSON and the launch counts
+    of its run (every kernel of the path at least once), the host's
+    waits on the device in one forward and one train step, and the
+    phase's seconds;
+then the per-kernel JSON line (all eight kernels, with the bench's
+launches beside the main path's) and the final
 ``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
 the serving model is built.
 
@@ -79,9 +92,6 @@ import time
 
 import numpy as np
 
-PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
-PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 GRAPH_BUCKETS = ((16, 64), (32, 128), (64, 256), (128, 384))
 TEXT_LENS = (16, 32)
 GRAPH_B = 256                # graphs per kernel-check batch
@@ -151,9 +161,9 @@ def nbytes(*objs) -> int:
 def bound(flops, byts, dtype):
     """The least time for ``flops`` operations at ``dtype``'s peak and
     ``byts`` bytes at the memory rate, in ms, and which of the two binds."""
-    import torch
+    from isubgvqa_tpu_torch.ops.flops import PEAK_BYTES, peak_flops
 
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = peak_flops(dtype)
     t_ops, t_bytes = flops / peak * 1e3, byts / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -244,6 +254,7 @@ def phase_kernels(model, device):
     import torch
     import torch.nn.functional as F
     from isubgvqa_tpu_torch import ops
+    from isubgvqa_tpu_torch.ops import flops as FL
     from isubgvqa_tpu_torch.ops import gat_kernel as G
     from isubgvqa_tpu_torch.ops import metalayer_kernel as M
     from isubgvqa_tpu_torch.ops import text_kernel as T
@@ -379,12 +390,10 @@ def phase_kernels(model, device):
             r = record("fused_gat_layer", f"B={GRAPH_B} N={n} E={e}", dtype,
                        lambda: G.fused_gat_layer(*args, fuse_instr=True),
                        lambda: G.fused_gat_layer_plain(*args, fuse_instr=True),
-                       flops=G.gat_layer_flops(nv, ev, c, heads, True),
+                       flops=FL.gat_layer_flops(nv, ev, c, heads, True),
                        inputs=(h, ins, gate, src, dst, em, nm, ea, gp),
                        outputs=(h, torch.empty(GRAPH_B, e, heads)),
-                       gemm_flops=2.0 * (rn * c * 2 * hc + re_ * c * hc
-                                         + rn * hc * hc // 2
-                                         + rn * hc // 2 * c),
+                       gemm_flops=FL.gat_layer_products(rn, re_, c, heads),
                        gemm_family="gemm_gather", launches=7)
             if dtype == torch.bfloat16 and (n, e) == GRAPH_BUCKETS[-1]:
                 bf = torch.bfloat16
@@ -406,15 +415,15 @@ def phase_kernels(model, device):
                 record("fused_gat_layer", f"masked B={GRAPH_B} N={n} E={e}",
                        dtype, lambda: G.fused_gat_layer(*a2),
                        lambda: G.fused_gat_layer_plain(*a2),
-                       flops=G.gat_layer_flops(nv, ev, c, heads),
+                       flops=FL.gat_layer_flops(nv, ev, c, heads),
                        inputs=a2, outputs=(h, torch.empty(GRAPH_B, e, heads)))
             margs = (h, ea, src, dst, em, nm, mp)
             r = record("fused_metalayer", f"B={GRAPH_B} N={n} E={e}", dtype,
                        lambda: M.fused_metalayer(*margs),
                        lambda: M.fused_metalayer_plain(*margs),
-                       flops=M.metalayer_flops(nv, ev, c),
+                       flops=FL.metalayer_flops(nv, ev, c),
                        inputs=margs, outputs=(h, ea),
-                       gemm_flops=2.0 * c * c * (7 * re_ + 3 * rn),
+                       gemm_flops=FL.metalayer_products(rn, re_, c),
                        gemm_family="gemm_gather", launches=9)
             if dtype == torch.bfloat16 and (n, e) == GRAPH_BUCKETS[-1]:
                 # the edge MLP's three segments, two gathered by the
@@ -443,9 +452,10 @@ def phase_kernels(model, device):
             r = record("fused_encoder_layer", f"B={TEXT_B} L={l}", dtype,
                        lambda: (T.fused_encoder_layer(x, km, ep, 8, fl),),
                        lambda: (T.fused_encoder_layer_plain(x, km, ep, 8, fl),),
-                       flops=T.encoder_layer_flops(TEXT_B, l, final_ln=True),
+                       flops=FL.encoder_layer_flops(TEXT_B, l, final_ln=True),
                        inputs=(x, km, ep, fl), outputs=(x,),
-                       gemm_flops=2.0 * TEXT_B * l * 512 * (4 * 512 + 2 * 2048))
+                       gemm_flops=(FL.encoder_products(TEXT_B, l)
+                                   - FL.attention_products(TEXT_B, l, l)))
             if dtype == torch.bfloat16:
                 elib = T.encoder_layer_library(ep, 8, dtype)
                 r.update(layer_library(
@@ -466,10 +476,12 @@ def phase_kernels(model, device):
             r = record("fused_decoder_layer", f"B={TEXT_B} T=4 L={l}", dtype,
                        lambda: (T.fused_decoder_layer(tgt, x, dp, 8, fl),),
                        lambda: (T.fused_decoder_layer_plain(tgt, x, dp, 8, fl),),
-                       flops=T.decoder_layer_flops(TEXT_B, 4, l, final_ln=True),
+                       flops=FL.decoder_layer_flops(TEXT_B, 4, l,
+                                                    final_ln=True),
                        inputs=(tgt, x, dp, fl), outputs=(tgt,),
-                       gemm_flops=2.0 * 512 * (TEXT_B * 4 * (6 * 512 + 2 * 2048)
-                                               + TEXT_B * l * 2 * 512))
+                       gemm_flops=(FL.decoder_products(TEXT_B, 4, l)
+                                   - FL.attention_products(TEXT_B, 4, 4)
+                                   - FL.attention_products(TEXT_B, 4, l)))
             if dtype == torch.bfloat16:
                 dlib = T.decoder_layer_library(dp, 8, dtype)
                 r.update(layer_library(
@@ -604,46 +616,55 @@ def profile_serving(pred, questions, graphs):
         f"{busy:.2f} ms ({busy / wall:.1%}); by kernel: {by_kernel(families)}")
 
 
-def phase_whole_forward(pred, ds):
-    """Kernel path vs plain path on one batch of the serving mix."""
+def forward_path(model, batch, noise, plain):
+    """One eval forward through the kernels, or with ``plain`` through the
+    fused layers' plain versions, with the gumbel ``noise`` given."""
     import torch
     from isubgvqa_tpu_torch import ops
-    from isubgvqa_tpu_torch.data import build_bucket_collators
     from isubgvqa_tpu_torch.models import (mgat, question_decoder,
                                            question_encoder,
                                            scene_graph_encoder)
-    from isubgvqa_tpu_torch.models.build import build_model
 
     sites = [(question_encoder, "fused_encoder_layer"),
              (question_decoder, "fused_decoder_layer"),
              (scene_graph_encoder, "fused_metalayer"),
              (mgat, "fused_gat_layer")]
+    saved = [getattr(m, n) for m, n in sites]
+    try:
+        if plain:
+            for m, n in sites:
+                setattr(m, n, getattr(ops, n + "_plain"))
+        with torch.no_grad():
+            return model(batch, noise=noise)
+    finally:
+        for (m, n), fn in zip(sites, saved):
+            setattr(m, n, fn)
 
-    def run(model, batch, noise, plain):
-        saved = [getattr(m, n) for m, n in sites]
-        try:
-            if plain:
-                for m, n in sites:
-                    setattr(m, n, getattr(ops, n + "_plain"))
-            with torch.no_grad():
-                return model(batch, noise=noise)
-        finally:
-            for (m, n), fn in zip(sites, saved):
-                setattr(m, n, fn)
 
-    colls = build_bucket_collators(pred.cfg, pred.tokenizer, pred.vocab,
-                                   batch_size=32)
-    batch, _ = colls[(32, 16)].collate([ds[i] for i in range(32)])
-    dev = pred.device
-    batch = batch.to(dev)
+def whole_forward_parity(model, vocab, batch):
+    """Kernel path against plain path on ``batch`` (on the card), same
+    weights and noise: in f32 (TF32 off) the logits within 1e-4 and the
+    node mask identical; in the model's bf16 the top-1 agreement.
+    Returns ``(f32 logits max abs, logits std, bf16 agreement, agreeing,
+    real, bf16 logits max abs, bf16 disagreements where the plain path's
+    top-1 leads its second answer by more than twice the largest logit
+    difference)``: no difference that small can reorder those, so any is
+    a fault."""
+    import torch
+    from isubgvqa_tpu_torch.models.build import build_model
+
+    dev = batch.node_mask.device
     gen = torch.Generator(device=dev).manual_seed(0)
     noise = -torch.log(-torch.log(torch.rand(
         batch.node_mask.shape, generator=gen, device=dev).clamp_min(1e-30)))
-    sd = {k: v.float() for k, v in pred.model.state_dict().items()}
-    cfg32 = dataclasses.replace(pred.cfg, compute_dtype="float32")
-    m32 = build_model(cfg32, pred.vocab, dev, state_dict=sd)
-    k32, p32 = run(m32, batch, noise, False), run(m32, batch, noise, True)
+    sd = {k: v.float() for k, v in model.state_dict().items()}
+    cfg32 = dataclasses.replace(model.cfg, compute_dtype="float32")
+    m32 = build_model(cfg32, vocab, dev, state_dict=sd)
+    k32 = forward_path(m32, batch, noise, False)
+    p32 = forward_path(m32, batch, noise, True)
+    del m32
     err = (k32.logits - p32.logits).abs().max().item()
+    std = p32.logits.std().item()
     # random weights leave the logits nearly uniform (spread ~0.1), so the
     # bound sits far below that spread: the paths differ only in f32
     # summation order
@@ -651,16 +672,32 @@ def phase_whole_forward(pred, ds):
         raise AssertionError(f"whole forward f32: logits differ by {err}")
     if not torch.equal(k32.node_mask.round(), p32.node_mask.round()):
         raise AssertionError("whole forward f32: node_mask differs")
-    k16, p16 = (run(pred.model, batch, noise, False),
-                run(pred.model, batch, noise, True))
+    del k32, p32
+    k16 = forward_path(model, batch, noise, False).logits
+    p16 = forward_path(model, batch, noise, True).logits
     real = batch.sample_mask > 0
-    agree = (k16.logits.argmax(-1) == p16.logits.argmax(-1))[real]
-    err16 = (k16.logits - p16.logits).abs().max().item()
+    same = k16.argmax(-1) == p16.argmax(-1)
+    err16 = (k16 - p16).abs().max().item()
+    top2 = p16.topk(2, dim=-1).values
+    resolved = real & (top2[:, 0] - top2[:, 1] > 2 * err16)
+    agree = same[real]
+    return (err, std, agree.float().mean().item(), int(agree.sum()),
+            int(real.sum()), err16, int((resolved & ~same).sum()))
+
+
+def phase_whole_forward(pred, ds):
+    """Kernel path vs plain path on one batch of the serving mix."""
+    from isubgvqa_tpu_torch.data import build_bucket_collators
+
+    colls = build_bucket_collators(pred.cfg, pred.tokenizer, pred.vocab,
+                                   batch_size=32)
+    batch, _ = colls[(32, 16)].collate([ds[i] for i in range(32)])
+    err, std, frac, agree, real, err16, _ = whole_forward_parity(
+        pred.model, pred.vocab, batch.to(pred.device))
     log(f"[5 whole forward] f32 (TF32 off): logits max abs {err:.3g} "
-        f"(bound 1e-4, logits std {p32.logits.std().item():.3g}), "
-        f"node_mask identical; bf16: top-1 agreement "
-        f"{agree.float().mean().item():.4f} ({int(agree.sum())}/"
-        f"{int(real.sum())}), logits max abs {err16:.3g}")
+        f"(bound 1e-4, logits std {std:.3g}), node_mask identical; bf16: "
+        f"top-1 agreement {frac:.4f} ({agree}/{real}), logits max abs "
+        f"{err16:.3g}")
 
 
 KERNELS = {
@@ -774,6 +811,7 @@ def phase_train_kernels(model, device):
     import torch
     import torch.nn.functional as F
     from isubgvqa_tpu_torch.models.layers import keep_mask
+    from isubgvqa_tpu_torch.ops import flops as FL
     from isubgvqa_tpu_torch.ops import gat_train as G
     from isubgvqa_tpu_torch.ops import metalayer_kernel as MK
     from isubgvqa_tpu_torch.ops import metalayer_train as M
@@ -1009,8 +1047,9 @@ def phase_train_kernels(model, device):
                        wrap(G.fused_gatconv_plain), inputs, masters(conv_p),
                        (torch.randn(b, n, heads * c, device=device),
                         torch.randn(b, e, heads, device=device)),
-                       G.gatconv_train_flops(nv, ev, c, heads), largest,
-                       gemm_flops=4.0 * heads * c * c * (2 * b * n + b * e))
+                       FL.gatconv_train_flops(nv, ev, c, heads), largest,
+                       gemm_flops=2 * FL.gat_conv_products(b * n, b * e, c,
+                                                           heads))
             entries[("fused_gatconv", dtype)] = r
             inputs = [t.clone().requires_grad_(True) for t in (xf, ea)]
             wrap = lambda f: (lambda x, a, p: f(x, a, src, dst, em, nm, p))
@@ -1020,8 +1059,8 @@ def phase_train_kernels(model, device):
                        wrap(M.fused_metalayer_train_plain), inputs, mp,
                        (torch.randn(b, n, c, device=device),
                         torch.randn(b, e, c, device=device)),
-                       M.metalayer_train_flops(nv, ev, c), largest,
-                       gemm_flops=(12.0 * b * n + 28.0 * b * e) * c * c,
+                       FL.metalayer_train_flops(nv, ev, c), largest,
+                       gemm_flops=2 * FL.metalayer_products(b * n, b * e, c),
                        gemm_family="gemm_bwd",
                        forward=lambda: M.fused_metalayer_train(
                            xf, ea, src, dst, em, nm, mp))
@@ -1052,8 +1091,9 @@ def phase_train_kernels(model, device):
                            x, km, masks, p, 8),
                        [x.clone().requires_grad_(True)], masters(enc_p),
                        (torch.randn(b, l, d, device=device),),
-                       T.encoder_layer_train_flops(b, l), largest,
-                       gemm_flops=4.0 * b * l * (4 * d * d + 2 * d * 2048))
+                       FL.encoder_layer_train_flops(b, l), largest,
+                       gemm_flops=2 * (FL.encoder_products(b, l, d)
+                                       - FL.attention_products(b, l, l, d)))
             r["attention_ms"], r["sdpa_ms"] = core_fwd_bwd("self", l, l,
                                                            dtype, km)
             if dtype == torch.float32 and largest:
@@ -1078,9 +1118,10 @@ def phase_train_kernels(model, device):
                        [tgt.clone().requires_grad_(True),
                         x.clone().requires_grad_(True)], dpm,
                        (torch.randn(b, 4, d, device=device),),
-                       T.decoder_layer_train_flops(b, 4, l), largest,
-                       gemm_flops=4.0 * (b * 4 * (6 * d * d + 2 * d * 2048)
-                                         + b * l * 2 * d * d),
+                       FL.decoder_layer_train_flops(b, 4, l), largest,
+                       gemm_flops=2 * (FL.decoder_products(b, 4, l, d)
+                                       - FL.attention_products(b, 4, 4, d)
+                                       - FL.attention_products(b, 4, l, d)),
                        gemm_family="gemm_bwd",
                        forward=lambda: T.fused_decoder_layer_train(
                            tgt, x, dmasks, dpm, 8))
@@ -1297,6 +1338,157 @@ def phase_train_step_parity(state, vocab, batch):
         f"loss {l16k:.5f} vs {l16p:.5f}, grad norm {n16k:.5f} vs {n16p:.5f}")
 
 
+BENCH_B = 2048               # the bench's inference batch
+BENCH_TRAIN_B = 256          # its training batch
+PARITY_BUCKET = (128, 32)    # the largest shapes reach the kernels at B = 2048
+# bf16 kernel path against bf16 plain path at B = 2048: the logits' max
+# abs difference (a fixed bound, not scaled by what it measures; the
+# paths round to bf16 at the same points and read 1.5e-3 against a logits
+# std of 0.044) and the share of real rows whose top-1 answer agrees
+BENCH_BF16_LOGITS_TOL = 1e-2
+BENCH_TOP1_FLOOR = 0.995
+SYNC_EVENTS = ("Synchronize", "cudaMemcpy")
+
+
+def host_syncs(fn) -> dict:
+    """Run ``fn`` under the host profiler; returns the count, by name, of
+    the CUDA runtime calls by which the host waits on the device or
+    copies with it (``cudaStreamSynchronize``, behind ``.item()`` and
+    ``bool()`` of a CUDA tensor, the other ``*Synchronize`` calls,
+    ``cudaMemcpy*``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    found = {}
+    for ev in prof.events():
+        if any(k in ev.name for k in SYNC_EVENTS):
+            found[ev.name] = found.get(ev.name, 0) + 1
+    return found
+
+
+def phase_bench():
+    """Phase 10: the port's bench (``isubgvqa_tpu_torch.bench``) at its own
+    batch: the kernel path against the plain path on one B = 2048 batch of
+    the largest bucket, then ``bench_inference`` at B = 2048 over every
+    bucket (at least 4 timed batches each), one chunk of each bucket's
+    batches profiled for the device's busy share and time by kernel, one
+    epoch of ``bench_e2e``, and
+    ``bench_train_step`` at 256, each with the launch counts of its run
+    and the host's waits on the device in one forward and one step.
+    Returns the launch counts."""
+    import torch
+    from isubgvqa_tpu_torch import bench, ops
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    setup = bench.build_bench_setup(bench._cfg("gumbel", BENCH_B,
+                                               "bfloat16"),
+                                    num_batches=12, device=dev)
+    log(f"[10 bench] fixture: {len(setup.ds)} samples of the GQA-like mix, "
+        f"batches per bucket "
+        f"{ {str(k): len(v) for k, v in setup.bucket_batches.items()} } in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    batch = setup.bucket_batches[PARITY_BUCKET][0].to(dev)
+    err, std, frac, agree, real, err16, bad = whole_forward_parity(
+        setup.model, setup.vocab, batch)
+    if not (err16 <= BENCH_BF16_LOGITS_TOL and frac >= BENCH_TOP1_FLOOR
+            and not bad):
+        raise AssertionError(
+            f"bench B={BENCH_B} bf16: logits max abs {err16:.3g} (bound "
+            f"{BENCH_BF16_LOGITS_TOL}), top-1 agreement {frac:.4f} (floor "
+            f"{BENCH_TOP1_FLOOR}), {bad} answers differ where the margin "
+            f"exceeds twice the logit difference")
+    log(f"[10 bench] kernel against plain, B={BENCH_B} bucket "
+        f"{PARITY_BUCKET}: f32 (TF32 off) logits max abs {err:.3g} (bound "
+        f"1e-4, logits std {std:.3g}), node_mask identical; bf16 logits max "
+        f"abs {err16:.3g} (bound {BENCH_BF16_LOGITS_TOL}), top-1 agreement "
+        f"{frac:.4f} ({agree}/{real}, floor {BENCH_TOP1_FLOOR}), no "
+        f"disagreement where the margin exceeds twice the logit difference")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def forward():
+        with torch.inference_mode():       # as bench_inference runs it
+            setup.model(batch, generator=gen)
+
+    syncs = host_syncs(forward)
+    log(f"[10 bench] host waits on the device in one B={BENCH_B} forward: "
+        f"{json.dumps(syncs)}")
+    del batch
+    torch.cuda.empty_cache()
+
+    def busy(key):
+        """One chunk of the bucket's timed batches, as bench_inference
+        runs them: its wall time, then under the profiler the device's
+        busy share of it (the profiler's host cost can lengthen the
+        profiled wall where the host is slow)."""
+        batches = [b.to(dev) for b in
+                   setup.bucket_batches[key][1:bench.CHUNK + 1]]
+
+        def chunk():
+            with torch.inference_mode():
+                for b in batches:
+                    setup.model(b, generator=gen)
+
+        chunk()                                   # warm-up, unprofiled
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        plain_wall = (time.perf_counter() - t0) * 1e3
+        wall, fam = device_profile(chunk)
+        busy_ms = sum(fam.values())
+        log(f"[10 bench] busy {key}: " + json.dumps({
+            "batches": len(batches), "wall_ms": plain_wall,
+            "profiled_wall_ms": wall, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall if busy_ms else None,
+            "device_ms_by_kernel": fam}))
+
+    counts = {}
+
+    def counted(name, wrappers, fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = ops.launch_counts(wrappers)
+        if min(got.values()) == 0:
+            raise AssertionError(f"{name}: a kernel never launched: {got}")
+        counts[name] = got
+        log(f"[10 bench] {name}: {json.dumps(out)}")
+        log(f"[10 bench] {name} launches: {json.dumps(got)}")
+        return out
+
+    counted("bench_inference", ops.EVAL_WRAPPERS,
+            lambda: bench.bench_inference(setup=setup))
+    for key in sorted(setup.bucket_batches):
+        busy(key)
+    counted("bench_e2e", ops.EVAL_WRAPPERS,
+            lambda: bench.bench_e2e(setup=setup, epochs=1))
+    del setup
+    torch.cuda.empty_cache()
+    train = counted("bench_train_step", ops.TRAIN_WRAPPERS,
+                    lambda: bench.bench_train_step(
+                        "gumbel", BENCH_TRAIN_B, device=dev))
+    log(f"[10 bench] train ms/step at {BENCH_TRAIN_B}: "
+        f"{train['ms_per_step']:.2f} (median over chunks, blended)")
+    tsetup = bench.build_bench_setup(
+        bench._cfg("gumbel", BENCH_TRAIN_B, "bfloat16"), num_batches=2,
+        min_timed=1, device=dev, train=True)
+    step = bench.make_train_step(tsetup.state.model, tsetup.state.optimizer,
+                                 tsetup.cfg)
+    tb = next(iter(tsetup.bucket_batches.values()))[0].to(dev)
+    step(tsetup.state, tb)
+    log(f"[10 bench] host waits on the device in one train step at "
+        f"{BENCH_TRAIN_B}: "
+        f"{json.dumps(host_syncs(lambda: step(tsetup.state, tb)))}")
+    log(f"[10 bench] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1325,6 +1517,9 @@ def main() -> int:
         torch.device("cuda"))
     counts.update(train_counts)
     phase_train_step_parity(state, vocab, batch)
+    del state, batch
+    torch.cuda.empty_cache()
+    bench_counts = phase_bench()
     line = []
     for k, (src, replaces) in KERNELS.items():
         r = entries[(k, torch.bfloat16)]
@@ -1333,7 +1528,9 @@ def main() -> int:
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-               "shape": r["shape"], "dtype": "bfloat16"}
+               "shape": r["shape"], "dtype": "bfloat16",
+               "bench_launches": {n: c[k] for n, c in bench_counts.items()
+                                  if k in c}}
         text = k in LIBRARY_LAYERS    # factor: the port's ms over the library's
         row.update(library_call=LIBRARY_LAYERS.get(k),
                    sdpa_ms=r.get("sdpa_ms"), attention_ms=r.get("attention_ms"))

@@ -3,9 +3,11 @@
 The port of ``isubgvqa_tpu/data/batching.py``: the same dense layout
 (``[B, N_max, ...]`` nodes, ``[B, E_max, ...]`` edges with per-edge
 within-graph node positions), the same truncation counts and the same
-bucket routing.  :class:`GraphBatch` is a dataclass of tensors with the
-JAX pytree's field names, dtypes and shapes.  Only the Python fill path
-is ported; the native C++ collate is not.
+bucket routing, the same sharded and bucketed iteration, and a
+background :func:`prefetch` that copies batches to the card on a side
+stream.  :class:`GraphBatch` is a dataclass of tensors with the JAX
+pytree's field names, dtypes and shapes.  Only the Python fill path is
+ported; the native C++ collate is not.
 """
 
 from __future__ import annotations
@@ -44,10 +46,20 @@ class GraphBatch:
     def max_nodes_per_graph(self) -> int:
         return self.node_tokens.shape[1]
 
+    def _map(self, fn) -> "GraphBatch":
+        return GraphBatch(**{f.name: fn(getattr(self, f.name))
+                             for f in dataclasses.fields(self)})
+
     def to(self, device, non_blocking: bool = False) -> "GraphBatch":
-        return GraphBatch(**{
-            f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
-            for f in dataclasses.fields(self)})
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "GraphBatch":
+        return self._map(torch.Tensor.pin_memory)
+
+    def record_stream(self, stream) -> None:
+        """Mark every tensor as used on ``stream`` (CUDA tensors)."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).record_stream(stream)
 
 
 @dataclasses.dataclass
@@ -157,6 +169,33 @@ class Collator:
         return batch, meta
 
 
+def iterate_batches(dataset, collator: Collator, shuffle: bool = False,
+                    seed: int = 0, drop_last: bool = False,
+                    shard_index: int = 0, num_shards: int = 1,
+                    pad_shards: bool = True
+                    ) -> Iterator[tuple[GraphBatch, BatchMeta]]:
+    """Fixed-shape batches with ``DistributedSampler``-like sharding (the
+    JAX package's ``iterate_batches``): each process takes a strided
+    slice of the (optionally shuffled) index list, wrap-padded to a
+    multiple of ``num_shards`` so every process steps equally often;
+    ``pad_shards=False`` partitions the dataset exactly instead."""
+    b = collator.spec.batch_size
+    idx = np.arange(len(dataset))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    if num_shards > 1 and pad_shards:
+        pad = (-len(idx)) % num_shards
+        if pad:
+            idx = np.concatenate([idx, idx[:pad]])
+    idx = idx[shard_index::num_shards]
+    n_full = len(idx) // b
+    for i in range(n_full):
+        yield collator.collate([dataset[int(j)]
+                                for j in idx[i * b:(i + 1) * b]])
+    if len(idx) > n_full * b and not drop_last:
+        yield collator.collate([dataset[int(j)] for j in idx[n_full * b:]])
+
+
 def _norm_bucket_key(k):
     # bare int keys carry no question-length constraint: order them
     # after same-node-cap tuple keys (least specific last)
@@ -166,17 +205,33 @@ def _norm_bucket_key(k):
 def route_to_buckets(dataset, collators: dict, idx=None) -> dict:
     """Route sample indices to the smallest bucket whose node, edge and
     question-length caps fit; the largest bucket is the truncating
-    fallback.  Same rule as the JAX package's ``route_to_buckets``."""
+    fallback.  Same rule as the JAX package's ``route_to_buckets``.
+
+    The per-sample sizes (nodes, edges, question tokens) are read once
+    and cached on the dataset object, keyed by the tokenizer, so an
+    epoch does not re-tokenize the whole set."""
     caps = sorted(collators.keys(), key=_norm_bucket_key)
     any_qlen = any(isinstance(k, tuple) for k in caps)
     if idx is None:
         idx = range(len(dataset))
     tok = collators[caps[0]].tokenizer
+    cache = getattr(dataset, "_route_size_cache", None)
+    if not (cache and cache[0] is tok and cache[1] == any_qlen
+            and len(cache[2]) == len(dataset)):
+        sizes = np.empty((len(dataset), 3), dtype=np.int64)
+        for j in range(len(dataset)):
+            s = dataset[j]
+            sizes[j] = (s.graph.num_nodes, s.graph.edge_src.shape[0],
+                        tok.count_tokens(s.question) if any_qlen else 0)
+        cache = (tok, any_qlen, sizes)
+        try:
+            dataset._route_size_cache = cache
+        except AttributeError:           # a list, or a read-only object
+            pass
+    sizes = cache[2]
     per_bucket: dict = {c: [] for c in caps}
     for j in idx:
-        s = dataset[int(j)]
-        n, e = s.graph.num_nodes, s.graph.edge_src.shape[0]
-        q = tok.count_tokens(s.question) if any_qlen else 0
+        n, e, q = (int(v) for v in sizes[int(j)])
         for key in caps:
             spec = collators[key].spec
             if (n <= spec.max_nodes_per_graph
@@ -190,11 +245,20 @@ def route_to_buckets(dataset, collators: dict, idx=None) -> dict:
 
 
 def iterate_batches_bucketed(dataset, collators: dict, shuffle: bool = False,
-                             seed: int = 0, drop_last: bool = False
+                             seed: int = 0, drop_last: bool = False,
+                             shard_index: int = 0, num_shards: int = 1,
+                             pad_shards: bool = True,
+                             group_by_bucket: bool = False
                              ) -> Iterator[tuple[GraphBatch, BatchMeta]]:
-    """Size-bucketed iteration on one process: the JAX package's
-    ``iterate_batches_bucketed`` with ``num_shards=1``.  Batches come
-    grouped by bucket in ascending order unless ``shuffle``."""
+    """Size-bucketed iteration (the JAX package's
+    ``iterate_batches_bucketed``): samples go to the smallest bucket that
+    fits them; each bucket's batches form rounds of ``num_shards``
+    same-shape chunks (the chunk list wrap-padded to a multiple of
+    ``num_shards`` unless ``pad_shards=False``), and process
+    ``shard_index`` collates its chunk of every round, so all processes
+    see the same shape sequence.  Rounds come grouped by bucket in
+    ascending order, shuffled under ``shuffle`` unless
+    ``group_by_bucket`` (which then only shuffles batch composition)."""
     caps = sorted(collators.keys(), key=_norm_bucket_key)
     idx = np.arange(len(dataset))
     if shuffle:
@@ -204,12 +268,117 @@ def iterate_batches_bucketed(dataset, collators: dict, shuffle: bool = False,
     for cap in caps:
         b = collators[cap].spec.batch_size
         members = per_bucket[cap]
-        for i in range(0, len(members), b):
-            chunk = members[i:i + b]
-            if len(chunk) < b and drop_last:
-                break
-            rounds.append((cap, chunk))
-    if shuffle:
+        n_full = len(members) // b
+        chunks = [members[i * b:(i + 1) * b] for i in range(n_full)]
+        if len(members) > n_full * b and not drop_last:
+            chunks.append(members[n_full * b:])
+        if not chunks:
+            continue
+        if pad_shards:
+            pad = (-len(chunks)) % num_shards
+            chunks += [chunks[i % len(chunks)] for i in range(pad)]  # wrap
+        for i in range(0, len(chunks), num_shards):
+            rounds.append((cap, chunks[i:i + num_shards]))
+    if shuffle and not group_by_bucket:
         np.random.default_rng(seed + 1).shuffle(rounds)
-    for cap, chunk in rounds:
-        yield collators[cap].collate([dataset[t] for t in chunk])
+    for cap, group in rounds:
+        if shard_index < len(group):
+            yield collators[cap].collate(
+                [dataset[t] for t in group[shard_index]])
+
+
+def prefetch(iterator: Iterator, depth: int = 2, device=None) -> Iterator:
+    """Run ``iterator`` in a background thread with up to ``depth`` items
+    ready in a bounded queue (the JAX package's ``prefetch``): the host
+    collates the next batch while the device runs the current one.  The
+    producer's exception re-raises at the consumer; when the consumer
+    stops early (``break``, an exception, ``close()``), the producer
+    stops too.
+
+    ``device``: ``None`` yields the items as they are; a callable places
+    each item in the producer thread; a CUDA device copies each item's
+    :class:`GraphBatch` (the item itself, or the first of a ``(batch,
+    meta)`` pair) from pinned host memory with ``non_blocking`` copies on
+    a side stream.  Before the consumer gets a copied batch, its current
+    stream waits on the copy's event, and every tensor of the batch is
+    recorded on that stream, so the allocator does not hand the memory
+    to a later copy while the consumer's work may still read it.  Any
+    other device takes a plain ``.to(device)``.
+    """
+    import queue
+    import threading
+
+    cuda = (device is not None and not callable(device)
+            and torch.device(device).type == "cuda")
+    if cuda:
+        dev = torch.device(device)
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        side = torch.cuda.Stream(device=dev)
+
+    def split(item):
+        if isinstance(item, tuple) and len(item) == 2:
+            return item[0], item[1], True
+        return item, None, False
+
+    def place(item):
+        if device is None:
+            return item, None
+        if callable(device):
+            return device(item), None
+        batch, meta, pair = split(item)
+        event = None
+        if cuda:
+            host = batch.pin_memory()
+            with torch.cuda.device(dev), torch.cuda.stream(side):
+                batch = host.to(dev, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(side)
+        else:
+            batch = batch.to(device)
+        return ((batch, meta) if pair else batch), event
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def guarded_put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for item in iterator:
+                if not guarded_put(place(item)):
+                    return
+            guarded_put(end)
+        except BaseException as exc:        # noqa: BLE001 — re-raised
+            guarded_put(exc)
+
+    thread = threading.Thread(target=producer, daemon=True, name="prefetch")
+    thread.start()
+    try:
+        while True:
+            got = q.get()
+            if got is end:
+                return
+            if isinstance(got, BaseException):
+                raise got
+            item, event = got
+            if event is not None:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(event)
+                split(item)[0].record_stream(stream)
+            yield item
+    finally:
+        stop.set()
+        try:                               # unblock a parked producer
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass

@@ -1,12 +1,80 @@
-"""Bucketed collators (the port of ``isubgvqa_tpu/data/build.py:
-build_bucket_collators``)."""
+"""Datasets and collators of the three GQA splits (the port of
+``isubgvqa_tpu/data/build.py``).
+
+:func:`build_datasets` gives train / dev / testdev sharing one
+scene-graph store, collators per split and size bucket, and the
+reference's evaluation batch of ``eval_batch_factor`` times the training
+batch (``datasets/build.py:55-67``).  It falls back to the synthetic
+mini-GQA fixture when ``cfg.synthetic`` is set or the real JSONs are
+absent.  The collators fill batches in Python: the JAX package's native
+C++ collate over a packed graph store is not ported.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Dict
 
 from ..config import Config
 from .batching import BucketSpec, Collator
+from .gqa import AnswerMap, GQADataset
+from .scene_graph import SceneGraphStore
+from .synthetic import SyntheticGQA
+from .tokenizer import build_tokenizer
+from .vocab import SceneGraphVocab
+
+
+@dataclasses.dataclass
+class DataBundle:
+    datasets: Dict[str, object]          # train / dev / testdev
+    collators: Dict[str, Collator]       # per split, at the largest caps
+    vocab: SceneGraphVocab
+    answers: AnswerMap
+    tokenizer: object
+    # per split: bucket key -> Collator, ascending
+    bucket_collators: Dict[str, Dict[tuple, Collator]] = dataclasses.field(
+        default_factory=dict)
+
+
+def _has_real_gqa(cfg: Config) -> bool:
+    return os.path.isfile(os.path.join(
+        cfg.data_dir, "questions", "train_balanced_questions.json"))
+
+
+def build_datasets(cfg: Config) -> DataBundle:
+    vocab = SceneGraphVocab.build(cfg.meta_dir, glove_path=cfg.glove_path,
+                                  seed=cfg.seed)
+    answers = AnswerMap.build(cfg.meta_dir, cfg.num_answers)
+    tokenizer = build_tokenizer(cfg.clip_tokenizer_dir,
+                                max_len=cfg.question_len,
+                                vocab_size=cfg.text_vocab_size)
+    if cfg.synthetic or not _has_real_gqa(cfg):
+        eval_size = max(cfg.synthetic_size // 4, 1)
+        datasets = {
+            split: SyntheticGQA(vocab, answers, size=size, seed=cfg.seed,
+                                split=name, shape_mix=cfg.synthetic_shape_mix)
+            for split, name, size in (
+                ("train", "train", cfg.synthetic_size),
+                ("dev", "valid", eval_size),
+                ("testdev", "testdev", eval_size))}
+    else:
+        store = SceneGraphStore(vocab, data_dir=cfg.data_dir,
+                                max_nodes=cfg.max_nodes_per_graph)
+        datasets = {split: GQADataset(name, store, answers, cfg.data_dir)
+                    for split, name in (("train", "train"), ("dev", "valid"),
+                                        ("testdev", "testdev"))}
+    eval_bs = cfg.batch_size * cfg.eval_batch_factor
+    split_bs = {"train": cfg.batch_size, "dev": eval_bs, "testdev": eval_bs}
+    bucket_collators = {
+        split: build_bucket_collators(cfg, tokenizer, vocab, batch_size=bs)
+        for split, bs in split_bs.items()}
+    top = (cfg.max_nodes_per_graph, cfg.question_len)
+    collators = {split: colls[top]
+                 for split, colls in bucket_collators.items()}
+    return DataBundle(datasets=datasets, collators=collators, vocab=vocab,
+                      answers=answers, tokenizer=tokenizer,
+                      bucket_collators=bucket_collators)
 
 
 def build_bucket_collators(cfg: Config, tokenizer, vocab,

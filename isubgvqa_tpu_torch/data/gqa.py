@@ -64,6 +64,17 @@ class AnswerMap:
         return cls.synthetic(n)
 
 
+def build_text_vocab(questions, tokenizer) -> dict:
+    """A word vocabulary from question texts (the JAX package's
+    ``build_text_vocab``; the reference builds it but answers through the
+    CLIP tokenizer).  Returns stoi with the five specials first."""
+    tokens = []
+    for q in questions:
+        tokens.extend(tokenizer.tokenize(q.lower()))
+    specials = ["<unk>", "<pad>", "<sos>", "<eos>", "<self>"]
+    return {t: i for i, t in enumerate(specials + sorted(set(tokens)))}
+
+
 @dataclasses.dataclass
 class Sample:
     question_id: str

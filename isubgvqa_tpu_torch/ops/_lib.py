@@ -179,8 +179,12 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+MAX_ELEMENTS = 2 ** 31 - 1   # the kernels' element offsets are 32-bit
+
+
 def check_cuda(*tensors) -> None:
-    """Every tensor lies on the card and is contiguous."""
+    """Every tensor lies on the card, is contiguous and has fewer than
+    2^31 elements (a larger one would wrap a 32-bit element offset)."""
     for t in tensors:
         if t is None:
             continue
@@ -188,3 +192,6 @@ def check_cuda(*tensors) -> None:
             raise ValueError("mixed devices: expected a CUDA tensor")
         if not t.is_contiguous():
             raise ValueError("kernels take contiguous tensors")
+        if t.numel() > MAX_ELEMENTS:
+            raise ValueError(f"kernels take tensors under 2^31 elements, "
+                             f"got {tuple(t.shape)}")

@@ -135,6 +135,9 @@ def fused_gat_layer(h, xf, instr, gate, src, dst, edge_mask, node_mask,
     att = p["att"].to(torch.float32).reshape(-1).contiguous()
     heads = att.shape[0] // c
     hc = heads * c
+    if b * e * hc > _lib.MAX_ELEMENTS:     # the projected edges [B*E, H*C]
+        raise ValueError(f"fused_gat_layer takes B*E*H*C < 2^31 (got B={b}, "
+                         f"E={e}, H*C={hc})")
     ht = h.reshape(b * n, c).contiguous()
     it = instr.to(dtype).contiguous()
     _lib.check_cuda(ht, it, att)
@@ -179,32 +182,3 @@ def fused_gat_layer(h, xf, instr, gate, src, dst, edge_mask, node_mask,
 
 
 fused_gat_layer.launches = 0
-
-
-def gat_layer_flops(nodes: int, edges: int, c: int = 300, heads: int = 4,
-                    fuse_instr: bool = False) -> float:
-    """FLOPs of one GAT layer over ``nodes`` valid nodes and ``edges``
-    valid edges (summed over the batch's graphs; padding rows are not
-    needed work): the port's copy of ``gat_kernel.fused_gat_layer_flops``
-    without the TPU's one-hot and packing terms (incidence compares; the
-    x_l[src] / x_r[dst] / gate gathers, the per-destination max and sum
-    broadcasts and the conv scatter as [E, N] matmuls; the block-diagonal
-    att and head-expand matmuls; the packed-graph one-hot reduces).  Here
-    a gather is an index read, the scatter one add per element, and the
-    logits ``2 * E * H * C``."""
-    n, e = float(nodes), float(edges)
-    hc = heads * c
-    pd = hc // 2
-    fl = 12.0 * n * c if fuse_instr else 0.0      # gelu(h * instr)
-    fl += 2 * (2.0 * n * c * hc + n * hc)          # x_l, x_r (+bias)
-    fl += 2.0 * e * c * hc                         # lin_edge
-    fl += 2.0 * e * hc + e                         # m = xs + xd + eproj, gate
-    fl += 4.0 * e * hc                             # gate x2, leaky relu x2
-    fl += 2.0 * e * hc                             # logits
-    fl += 8.0 * e * heads                          # softmax + alpha * gate
-    fl += 2.0 * e * hc + n * hc                    # weighted sum + bias
-    fl += 2.0 * n * hc * pd + 12.0 * n * pd        # x_proj 1 + gelu
-    fl += 2.0 * n * pd * c + 12.0 * n * c          # x_proj 2 + gelu
-    fl += 2.0 * n * c + 4.0 * n                    # sdp logits + softmax
-    fl += 10.0 * n * c                             # GraphNorm + residual
-    return fl

@@ -111,6 +111,9 @@ class _GatConv(torch.autograd.Function):
         if n > 256 or e > 1024:
             raise ValueError(f"fused_gatconv takes N <= 256 and E <= 1024 "
                              f"(got N={n}, E={e})")
+        if b * e * hc > _lib.MAX_ELEMENTS:    # the projected edges
+            raise ValueError(f"fused_gatconv takes B*E*H*C < 2^31 (got "
+                             f"B={b}, E={e}, H*C={hc})")
         wl = p["wl"].detach().float().contiguous()
         wr = p["wr"].detach().float().contiguous()
         wlr = torch.cat([wl, wr])             # d x_l, d x_r share one dgrad
@@ -239,33 +242,3 @@ def fused_gat_layer_train(h, xf, instr, gate, src, dst, edge_mask,
     conv, alpha = fused_gatconv(xf, gate, src, dst, edge_mask, e_attr,
                                 {k: params[k] for k in CONV_KEYS})
     return gat_head_plain(h, conv, instr, node_mask, params), alpha
-
-
-def gatconv_train_flops(nodes: int, edges: int, c: int = 300,
-                        heads: int = 4) -> float:
-    """FLOPs of the conv's forward and backward over ``nodes`` valid nodes
-    and ``edges`` valid edges (summed over the batch): the port's model of
-    ``gat_train.fused_gatconv_{fwd,bwd}_flops`` without the backward's
-    recompute and the one-hot / block-diagonal terms (gathers and
-    scatters are index reads and adds; the logits ``2 E H C``)."""
-    n, e = float(nodes), float(edges)
-    hc = heads * c
-    fl = 2 * (2.0 * n * c * hc + n * hc)     # x_l, x_r (+bias)
-    fl += 2.0 * e * c * hc                   # lin_edge
-    fl += 2.0 * e * hc + e                   # message, edge gate
-    fl += 4.0 * e * hc + 2.0 * e * hc        # gates, leaky relu, logits
-    fl += 8.0 * e * heads                    # softmax, alpha * gate
-    fl += 2.0 * e * hc + n * hc              # weighted sum + bias
-    # backward
-    fl += n * hc                             # d cbias
-    fl += 2.0 * e * hc                       # d w per edge and head
-    fl += 6.0 * e * hc                       # S1, S2
-    fl += 6.0 * e * heads                    # softmax backward, d egate
-    fl += 6.0 * e * hc                       # d m0
-    fl += 3.0 * e * hc                       # d x_l, d x_r scatters
-    fl += 3.0 * e * hc                       # d att
-    fl += 2 * (2.0 * n * hc * c)             # d xf via wl / wr
-    fl += 2 * (2.0 * n * c * hc + n * hc)    # d wl / d bl, d wr / d br
-    fl += 2 * (2.0 * e * hc * c)             # d e_attr, d we
-    fl += e                                  # d gate (dst only)
-    return fl

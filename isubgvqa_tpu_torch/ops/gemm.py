@@ -118,15 +118,21 @@ def cached(owner: torch.Tensor, key, deps: Sequence[torch.Tensor],
     """``make()``, kept on ``owner`` (an attribute of the tensor, so it
     goes with it) while ``owner`` and ``deps`` are the same tensors at the
     same storage and version: an eval model's weights are fixed, and an
-    in-place update bumps a tensor's version."""
+    in-place update bumps a tensor's version.  What ``make()`` returns is
+    an ordinary tensor even when the first call runs under
+    ``torch.inference_mode()`` (an inference tensor has no version to
+    check); tensors made under that mode are not kept."""
     ts = (owner, *deps)
+    if any(t.is_inference() for t in ts):
+        return make()
     state = tuple(t._version for t in ts) + tuple(t.data_ptr() for t in ts)
     memo = owner.__dict__.setdefault("_isg_memo", {})
     hit = memo.get(key)
     if hit is not None and hit[1] == state and all(
             a is b for a, b in zip(hit[0], deps)):
         return hit[2]
-    out = make()
+    with torch.inference_mode(False), torch.no_grad():
+        out = make()
     memo[key] = (tuple(deps), state, out)
     return out
 

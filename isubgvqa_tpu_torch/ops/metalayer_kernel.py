@@ -197,22 +197,3 @@ def fused_metalayer(x, e_attr, src, dst, edge_mask, node_mask, params):
 
 
 fused_metalayer.launches = 0
-
-
-def metalayer_flops(nodes: int, edges: int, c: int = 300) -> float:
-    """FLOPs of one MetaLayer round over ``nodes`` valid nodes and
-    ``edges`` valid edges (summed over the batch's graphs): the port's
-    copy of ``gat_kernel.metalayer_kernel_flops`` without the TPU's
-    one-hot terms (incidence compares, the x_src/x_dst gathers and the
-    aggregation as [E, N] matmuls, the degree matmul); the gather is an
-    index read and the aggregation one add per message element."""
-    n, e = float(nodes), float(edges)
-    fl = 3 * (2.0 * e * c * c) + 12.0 * e * c      # edge MLP in + gelu
-    fl += 2.0 * e * c * c                          # edge MLP out
-    fl += 2 * (2.0 * e * c * c) + 12.0 * e * c     # node mlp1 in + gelu
-    fl += 2.0 * e * c * c + e * c                  # node mlp1 out + mask
-    fl += e * c + n * c                            # scatter-add + divide
-    fl += 2 * (2.0 * n * c * c) + 12.0 * n * c     # node mlp2 in + gelu
-    fl += 2.0 * n * c * c                          # node mlp2 out
-    fl += 10.0 * n * c                             # GraphNorm
-    return fl

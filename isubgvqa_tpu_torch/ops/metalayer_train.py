@@ -266,28 +266,3 @@ def fused_metalayer_train(x, e_attr, src, dst, edge_mask, node_mask, params):
 
 fused_metalayer_train.launches = 0
 fused_metalayer_train.bwd_launches = 0
-
-
-def metalayer_train_flops(nodes: int, edges: int, c: int = 300) -> float:
-    """FLOPs of one round's forward and backward over ``nodes`` valid
-    nodes and ``edges`` valid edges (summed over the batch): the forward
-    of :func:`.metalayer_kernel.metalayer_flops` plus the backward chain
-    of ``metalayer_train.metalayer_bwd_flops`` without its recompute and
-    one-hot terms (gathers and scatters are index reads and adds)."""
-    from .metalayer_kernel import metalayer_flops
-
-    n, e = float(nodes), float(edges)
-    fl = metalayer_flops(nodes, edges, c)
-    fl += 17 * n * c                          # GraphNorm backward
-    fl += 2 * (2 * n * c * c) + n * c         # d og, d n2w2 (+ d n2b2)
-    fl += 13 * n * c                          # gelu'
-    fl += 4 * (2 * n * c * c) + n * c         # dx, d agg, d n2w1 halves
-    fl += e * c                               # scatter-mean backward
-    fl += 2 * (2 * e * c * c) + e * c         # d mg, d n1w2 (+ d n1b2)
-    fl += 13 * e * c                          # gelu'
-    fl += 4 * (2 * e * c * c) + 2 * e * c     # d xs, d e_out, d n1w1 halves
-    fl += 2 * (2 * e * c * c) + e * c         # d hg, d ew2 (+ d eb2)
-    fl += 13 * e * c                          # gelu'
-    fl += 6 * (2 * e * c * c) + e * c         # d xs+, d xd, de, d ew1
-    fl += 2 * e * c                           # row scatters
-    return fl

@@ -446,46 +446,3 @@ def decoder_layer_library(params, num_heads: int = 8,
                                                  memory))
     run.layer = layer
     return run
-
-
-# ------------------------------------------------------------ FLOP models
-
-def encoder_layer_flops(b: int, l: int, d: int = 512, f: int = 2048,
-                        heads: int = 8, final_ln: bool = False) -> float:
-    """FLOPs of one encoder layer for ``b`` questions of ``l`` tokens:
-    the port's copy of ``text_kernel.fused_encoder_layer_flops`` with
-    the TPU's packing terms dropped (block-diagonal mask construction and
-    the cross-question scores of the packed [R, R] attention: each
-    question attends over its own ``l`` keys only)."""
-    r = b * l
-    fl = 2.0 * r * d * 3 * d + 3 * r * d            # QKV (+bias)
-    fl += 2.0 * b * l * l * d + 2.0 * r * l         # scores, scale + bias
-    fl += 4.0 * r * l * heads                        # softmax
-    fl += 2.0 * b * l * l * d                        # P.V
-    fl += 2.0 * r * d * d + r * d                    # out projection
-    fl += r * d + 6.0 * r * d                        # residual + LN1
-    fl += 2.0 * r * d * f + 2.0 * r * f              # FFN in + bias + relu
-    fl += 2.0 * r * f * d + r * d                    # FFN out + bias
-    fl += r * d + 6.0 * r * d                        # residual + LN2
-    if final_ln:
-        fl += 6.0 * r * d
-    return fl
-
-
-def decoder_layer_flops(b: int, t: int, l: int, d: int = 512, f: int = 2048,
-                        heads: int = 8, final_ln: bool = False) -> float:
-    """FLOPs of one decoder layer (the port's copy of
-    ``fused_decoder_layer_flops`` without the packing terms)."""
-    rt, rm = b * t, b * l
-    fl = 2.0 * rt * d * 3 * d + 3 * rt * d           # self QKV
-    fl += 4.0 * b * t * t * d + 7.0 * rt * t * heads  # self scores/softmax/PV
-    fl += 2.0 * rt * d * d + rt * d + 7.0 * rt * d   # out proj, res + LN1
-    fl += 2.0 * rt * d * d + rt * d                  # cross q
-    fl += 2.0 * rm * d * 2 * d + 2 * rm * d          # cross k, v
-    fl += 4.0 * b * t * l * d + 7.0 * rt * l * heads  # cross scores/PV
-    fl += 2.0 * rt * d * d + rt * d + 7.0 * rt * d   # out proj, res + LN2
-    fl += 2.0 * rt * d * f + 2.0 * rt * f            # FFN in
-    fl += 2.0 * rt * f * d + rt * d + 7.0 * rt * d   # FFN out, res + LN3
-    if final_ln:
-        fl += 6.0 * rt * d
-    return fl

@@ -405,51 +405,3 @@ def fused_decoder_layer_train(tgt, memory, masks: Optional[dict], params,
 
 fused_decoder_layer_train.launches = 0
 fused_decoder_layer_train.bwd_launches = 0
-
-
-# ------------------------------------------------------------ FLOP models
-
-def _mha_train_flops(rq, rk, lq, lk, b, d, heads, masked):
-    """Forward and backward of one attention block (projections, scores,
-    softmax and P.V) without the TPU's packing terms."""
-    fwd = 2.0 * rq * d * d + 2.0 * rk * d * 2 * d + (rq + 2.0 * rk) * d
-    fwd += 4.0 * b * lq * lk * d + 7.0 * b * heads * lq * lk
-    fwd += 2.0 * rq * d * d + rq * d
-    bwd = 2 * (2.0 * rq * d * d) + rq * d             # out proj dgrad, wgrad
-    bwd += 8.0 * b * lq * lk * d + 6.0 * b * heads * lq * lk  # dV dP dQ dK
-    bwd += 2 * (2.0 * rq * d * d + 2.0 * rk * d * 2 * d)      # in proj
-    bwd += (rq + 2.0 * rk) * d                        # bias gradients
-    if masked:
-        fwd += b * heads * lq * lk
-        bwd += 2.0 * b * heads * lq * lk
-    return fwd + bwd
-
-
-def _ffn_ln_train_flops(r, d, f, masked):
-    fl = 3 * (2.0 * r * d * f) * 2 + 4.0 * r * f + 2.0 * r * d  # fwd + bwd
-    fl += 2 * (8.0 * r * d) + 2 * (10.0 * r * d)                # 2 LN fwd+bwd
-    if masked:
-        fl += 2 * (2.0 * r * d + 2.0 * r * f)
-    return fl
-
-
-def encoder_layer_train_flops(b: int, l: int, d: int = 512, f: int = 2048,
-                              heads: int = 8, masked: bool = True) -> float:
-    """FLOPs of one encoder layer's forward and backward for ``b``
-    questions of ``l`` tokens (the port's model of
-    ``text_train.encoder_layer_train_{fwd,bwd}_flops`` without the
-    backward's recompute, which the port does not do, and without the
-    packing terms)."""
-    r = b * l
-    return (_mha_train_flops(r, r, l, l, b, d, heads, masked)
-            + _ffn_ln_train_flops(r, d, f, masked))
-
-
-def decoder_layer_train_flops(b: int, t: int, l: int, d: int = 512,
-                              f: int = 2048, heads: int = 8,
-                              masked: bool = True) -> float:
-    rt, rm = b * t, b * l
-    fl = _mha_train_flops(rt, rt, t, t, b, d, heads, masked)
-    fl += _mha_train_flops(rt, rm, t, l, b, d, heads, masked)
-    fl += 2 * (8.0 * rt * d) + 2 * (10.0 * rt * d)   # the third LN
-    return fl + _ffn_ln_train_flops(rt, d, f, masked)

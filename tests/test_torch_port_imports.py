@@ -1,7 +1,7 @@
 """Import hygiene of the port: no module of ``isubgvqa_tpu_torch/`` and
-not ``chip_smoke.py`` imports JAX, Flax, Optax, Orbax or the JAX package
-(whose ``__init__`` pulls in jax), and every port module imports on a
-machine without CUDA."""
+not ``chip_smoke.py`` imports JAX, Flax, Optax, Orbax, the JAX package
+(whose ``__init__`` pulls in jax) or the JAX package's root ``bench.py``,
+and every port module imports on a machine without CUDA."""
 
 import ast
 import importlib
@@ -13,7 +13,9 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "isubgvqa_tpu")
+# ``bench`` is the JAX package's root bench.py: the port has its own
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "isubgvqa_tpu",
+             "bench")
 
 
 def _port_files():
