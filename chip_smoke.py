@@ -72,8 +72,26 @@ script exits non-zero):
     of its run (every kernel of the path at least once), the host's
     waits on the device in one forward and one train step, and the
     phase's seconds;
+11. samplers: for each of imle, aimle and simple, at the full width of
+    the config of record with only ``sampler_type`` changed: (a)
+    ``Predictor.predict`` on 64 questions (bf16; aimle's state
+    untouched); (b) the whole eval forward, kernel path against plain
+    path, same weights and noise, on one B = 256 batch of the largest
+    bucket (f32: logits within 1e-4, node mask identical; bf16: logits
+    within 1e-2, top-1 agreement at least 99.5 %); (c) one f32 train
+    step, kernel path against plain path, from the same weights, masks
+    and noise under phase 9's bounds, and for aimle the three state
+    tensors after the step within 1e-6 (both paths start at beta 5); (d)
+    the host's waits on the device in one train step, no more than
+    gumbel's in phase 10; (e) ``bench_inference`` at B = 2048 and
+    ``bench_train_step`` at 256 (fewer timed chunks than phase 10: a
+    fixture of 4 x 2048 samples), each with its launch counts (all four
+    eval kernels, all four training kernels); then the sampler alone
+    (eval at 2048, forward + backward at 256, each node cap) and its
+    share of the bench's batch and step; last, simple's marginals DP
+    alone (the log-depth scan beside the step-by-step DP) and its share;
 then the per-kernel JSON line (all eight kernels, with the bench's
-launches beside the main path's) and the final
+launches, phase 11's among them, beside the main path's) and the final
 ``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
 the serving model is built.
 
@@ -616,9 +634,9 @@ def profile_serving(pred, questions, graphs):
         f"{busy:.2f} ms ({busy / wall:.1%}); by kernel: {by_kernel(families)}")
 
 
-def forward_path(model, batch, noise, plain):
+def forward_path(model, batch, noise, plain, aimle_states=None):
     """One eval forward through the kernels, or with ``plain`` through the
-    fused layers' plain versions, with the gumbel ``noise`` given."""
+    fused layers' plain versions, with the sampler's ``noise`` given."""
     import torch
     from isubgvqa_tpu_torch import ops
     from isubgvqa_tpu_torch.models import (mgat, question_decoder,
@@ -635,13 +653,13 @@ def forward_path(model, batch, noise, plain):
             for m, n in sites:
                 setattr(m, n, getattr(ops, n + "_plain"))
         with torch.no_grad():
-            return model(batch, noise=noise)
+            return model(batch, noise=noise, aimle_states=aimle_states)
     finally:
         for (m, n), fn in zip(sites, saved):
             setattr(m, n, fn)
 
 
-def whole_forward_parity(model, vocab, batch):
+def whole_forward_parity(model, vocab, batch, aimle_states=None):
     """Kernel path against plain path on ``batch`` (on the card), same
     weights and noise: in f32 (TF32 off) the logits within 1e-4 and the
     node mask identical; in the model's bf16 the top-1 agreement.
@@ -660,8 +678,8 @@ def whole_forward_parity(model, vocab, batch):
     sd = {k: v.float() for k, v in model.state_dict().items()}
     cfg32 = dataclasses.replace(model.cfg, compute_dtype="float32")
     m32 = build_model(cfg32, vocab, dev, state_dict=sd)
-    k32 = forward_path(m32, batch, noise, False)
-    p32 = forward_path(m32, batch, noise, True)
+    k32 = forward_path(m32, batch, noise, False, aimle_states)
+    p32 = forward_path(m32, batch, noise, True, aimle_states)
     del m32
     err = (k32.logits - p32.logits).abs().max().item()
     std = p32.logits.std().item()
@@ -673,8 +691,8 @@ def whole_forward_parity(model, vocab, batch):
     if not torch.equal(k32.node_mask.round(), p32.node_mask.round()):
         raise AssertionError("whole forward f32: node_mask differs")
     del k32, p32
-    k16 = forward_path(model, batch, noise, False).logits
-    p16 = forward_path(model, batch, noise, True).logits
+    k16 = forward_path(model, batch, noise, False, aimle_states).logits
+    p16 = forward_path(model, batch, noise, True, aimle_states).logits
     real = batch.sample_mask > 0
     same = k16.argmax(-1) == p16.argmax(-1)
     err16 = (k16 - p16).abs().max().item()
@@ -1255,14 +1273,18 @@ def phase_training(device):
     return counts, state, vocab, batches[0][1], statistics.median(times)
 
 
-def phase_train_step_parity(state, vocab, batch):
+def phase_train_step_parity(state, vocab, batch, tag="[9 train step]",
+                            aimle_beta=None):
     """One step's loss and gradients through the kernels and through the
-    plain versions, same weights, masks and noise."""
+    plain versions, same weights, masks and noise.  With the aimle sampler
+    each path starts from its own fresh AIMLE states at ``aimle_beta``,
+    and the states after the backward agree within 1e-6."""
     import torch
     from isubgvqa_tpu_torch.models import (question_decoder,
                                            question_encoder,
                                            scene_graph_encoder)
-    from isubgvqa_tpu_torch.models.build import build_model
+    from isubgvqa_tpu_torch.models.build import (build_model,
+                                                 make_aimle_states)
     from isubgvqa_tpu_torch.ops import gat_train, metalayer_train, text_train
     from isubgvqa_tpu_torch.train.steps import cross_entropy_loss
 
@@ -1279,6 +1301,9 @@ def phase_train_step_parity(state, vocab, batch):
         cfg = dataclasses.replace(state.model.cfg, compute_dtype=dtype)
         model = build_model(cfg, vocab, batch.node_mask.device,
                             state_dict=sd, train=True)
+        states = make_aimle_states(cfg, batch.node_mask.device)
+        for st in (states or {}).values():
+            st.beta.fill_(aimle_beta)
         saved = [getattr(m, n) for m, n, _ in sites]
         try:
             if plain:
@@ -1286,7 +1311,8 @@ def phase_train_step_parity(state, vocab, batch):
                     setattr(m, n, f)
             gen = torch.Generator(device=batch.node_mask.device)
             gen.manual_seed(11)
-            out = model(batch, generator=gen, train=True)
+            out = model(batch, generator=gen, train=True,
+                        aimle_states=states)
             loss = cross_entropy_loss(out.logits, batch.labels,
                                       batch.sample_mask)
             loss.backward()
@@ -1296,10 +1322,16 @@ def phase_train_step_parity(state, vocab, batch):
         grads = {n: p.grad for n, p in model.named_parameters()}
         norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
-        return float(loss.detach()), float(norm), out.node_mask, grads
+        after = [[float(getattr(st, f)) for f in
+                  ("beta", "grad_norm", "prev_update")]
+                 for st in (states or {}).values()]
+        return float(loss.detach()), float(norm), out.node_mask, grads, after
 
-    lk, nk, mk, gk = run("float32", False)
-    lp, np_, mp, gp = run("float32", True)
+    lk, nk, mk, gk, sk = run("float32", False)
+    lp, np_, mp, gp, sp = run("float32", True)
+    if not np.allclose(sk, sp, rtol=0, atol=1e-6):
+        raise AssertionError(f"train step f32: AIMLE state {sk} against "
+                             f"plain {sp}")
     if not abs(lk - lp) <= 1e-5 * abs(lp):
         raise AssertionError(f"train step f32: loss {lk} vs plain {lp}")
     if not abs(nk - np_) <= 1e-3 * np_:
@@ -1319,23 +1351,25 @@ def phase_train_step_parity(state, vocab, batch):
     errs = sorted(((rms(gk[k] - g) / max(rms(g), floor), k, rms(g))
                    for k, g in gp.items()), reverse=True)
     worst = errs[0][0]
-    log("[9 train step] f32 worst gradient leaves (RMS error of RMS, leaf, "
+    log(f"{tag} f32 worst gradient leaves (RMS error of RMS, leaf, "
         "RMS): " + "; ".join(f"{e:.3g} {k} {r:.3g}" for e, k, r in errs[:4]))
     if not worst <= 3e-3:
         raise AssertionError(f"train step f32: {errs[0][1]} differs by "
                              f"{worst} of its RMS")
-    l16k, n16k, _, _ = run("bfloat16", False)
-    l16p, n16p, _, _ = run("bfloat16", True)
+    l16k, n16k, _, _, _ = run("bfloat16", False)
+    l16p, n16p, _, _, _ = run("bfloat16", True)
     # bf16: the two paths round the forward at the same points, but a
     # flipped rounding moves the loss (~7.5) by far less than 1 %
     if not (abs(l16k - l16p) <= 1e-2 * abs(l16p)
             and abs(n16k - n16p) <= 5e-2 * n16p):
         raise AssertionError(f"train step bf16: loss {l16k} vs {l16p}, grad "
                              f"norm {n16k} vs {n16p}")
-    log(f"[9 train step] f32 (TF32 off): loss {lk:.6f} vs plain {lp:.6f}, "
+    log(f"{tag} f32 (TF32 off): loss {lk:.6f} vs plain {lp:.6f}, "
         f"grad norm {nk:.6f} vs {np_:.6f}, node mask identical, worst "
         f"gradient leaf {worst:.3g} of its RMS ({len(gk)} leaves); bf16: "
-        f"loss {l16k:.5f} vs {l16p:.5f}, grad norm {n16k:.5f} vs {n16p:.5f}")
+        f"loss {l16k:.5f} vs {l16p:.5f}, grad norm {n16k:.5f} vs {n16p:.5f}"
+        + (f"; AIMLE state (beta, grad_norm, prev_update) {sk} in both, "
+           f"within 1e-6" if sk else ""))
 
 
 BENCH_B = 2048               # the bench's inference batch
@@ -1379,7 +1413,7 @@ def phase_bench():
     epoch of ``bench_e2e``, and
     ``bench_train_step`` at 256, each with the launch counts of its run
     and the host's waits on the device in one forward and one step.
-    Returns the launch counts."""
+    Returns the launch counts and the host's waits in one train step."""
     import torch
     from isubgvqa_tpu_torch import bench, ops
 
@@ -1482,10 +1516,291 @@ def phase_bench():
                                  tsetup.cfg)
     tb = next(iter(tsetup.bucket_batches.values()))[0].to(dev)
     step(tsetup.state, tb)
+    train_syncs = host_syncs(lambda: step(tsetup.state, tb))
     log(f"[10 bench] host waits on the device in one train step at "
-        f"{BENCH_TRAIN_B}: "
-        f"{json.dumps(host_syncs(lambda: step(tsetup.state, tb)))}")
+        f"{BENCH_TRAIN_B}: {json.dumps(train_syncs)}")
     log(f"[10 bench] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, train_syncs
+
+
+SAMPLERS = ("imle", "aimle", "simple")
+AIMLE_BETA = 5.0             # the train-step check's starting beta: at the
+# init's 0 the target equals theta and aimle's gradient is zero
+NODE_CAPS = (16, 32, 64, 128)
+
+
+def serve_sampler(sampler):
+    """(a): ``Predictor.predict`` of 64 questions with ``sampler``; returns
+    the wall ms and the eval launch counts."""
+    import torch
+    from isubgvqa_tpu_torch import ops
+    from isubgvqa_tpu_torch.data import SyntheticGQA
+    from isubgvqa_tpu_torch.serve import Predictor
+
+    cfg = dataclasses.replace(serving_config(), sampler_type=sampler)
+    pred = Predictor.from_seed(cfg, device="cuda")
+    ds = SyntheticGQA(pred.vocab, pred.answers, size=64, seed=0,
+                      shape_mix="gqa")
+    questions = [ds.samples[i][2] for i in range(len(ds))]
+    graphs = [ds.store.scene_graphs[ds.samples[i][1]] for i in range(len(ds))]
+    pred.predict(questions[:8], graphs[:8], batch_size=32)     # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = pred.predict(questions, graphs, batch_size=32, seed=0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts(ops.EVAL_WRAPPERS)
+    if len(results) != 64 or any(r is None for r in results):
+        raise AssertionError(f"{sampler} serving: wrong number of answers")
+    # imle's eval is the plain top-k of the bf16 gate scores, where ties
+    # select every node at the k-th value (the reference's ">=" solver);
+    # the noisy samplers break ties
+    ties = 0
+    for r in results:
+        kept = np.round(r.node_mask).sum()
+        ties += int(kept > cfg.sample_k)
+        if not (np.isfinite(r.confidence) and np.isfinite(r.gate).all()
+                and set(np.unique(r.node_mask)) <= {0.0, 1.0}
+                and (kept <= cfg.sample_k or sampler == "imle")):
+            raise AssertionError(f"{sampler} serving: bad answer {r}")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"{sampler} serving: a kernel never launched: "
+                             f"{counts}")
+    if pred.aimle_states is not None:
+        st = pred.aimle_states[3]
+        if (float(st.beta), float(st.grad_norm)) != (0.0, 1.0):
+            raise AssertionError("serving changed the AIMLE state")
+    log(f"[11 samplers] {sampler} (a) serving: 64 answers in {wall:.1f} ms "
+        f"over {len(pred.last_batch_shapes)} batches, {ties} keeping more "
+        f"than k nodes (tied scores); first "
+        f"{results[0].answer!r} ({results[0].confidence:.4f}), kept "
+        f"{results[0].subgraph_nodes}; launches {json.dumps(counts)}")
+
+
+def sampler_ms(sampler, b, n, train):
+    """The sampler alone on ``[b, n]`` gate scores (a quarter of them
+    zero-filled padding slots), as the mask head calls it: eval under
+    ``torch.inference_mode()``, or training forward + backward.  Returns
+    the median ms by CUDA events (alone, the device waits on the host's
+    launches), its CUDA kernels and their device ms from the profile."""
+    import torch
+    from isubgvqa_tpu_torch.models.masking import MaskingModel
+    from isubgvqa_tpu_torch.sampling import init_aimle_state
+
+    head = MaskingModel(8, 8, 3, sampler_type=sampler).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    scores = torch.randn(b, n, device="cuda")
+    scores[:, 3 * n // 4:] = 0.0
+    dy = torch.randn(b, n, device="cuda")
+    st = init_aimle_state("cuda", initial_beta=AIMLE_BETA)
+
+    def call():
+        if not train:
+            with torch.inference_mode():
+                return head.sample(scores, False, gen, None, st)
+        x = scores.clone().requires_grad_()
+        return torch.autograd.grad(head.sample(x, True, gen, None, st), x,
+                                   dy)
+
+    ms = time_ms(call)
+    launches = {}
+    _, fam = device_profile(call, launches)
+    return ms, sum(launches.values()), sum(fam.values())
+
+
+def simple_dp_ms():
+    """Simple's marginals DP alone (``exact_k_marginals``, k = 3) at each
+    node cap: the log-depth scan at B = 2048 (eval) and its forward +
+    backward at B = 256 (training), with its CUDA kernels; the
+    step-by-step DP (``esp_sequential``) beside it at B = 2048."""
+    import torch
+    from isubgvqa_tpu_torch.sampling import simple
+
+    out = {}
+    for n in NODE_CAPS:
+        s = torch.randn(2048, n, device="cuda")
+        s[:, 3 * n // 4:] = 0.0
+        x = torch.randn(256, n, device="cuda", requires_grad=True)
+        w = torch.randn(256, n, device="cuda")
+
+        def fwd():
+            with torch.inference_mode():
+                return simple.exact_k_marginals(s, 3)
+
+        def seq():
+            with torch.inference_mode():
+                return simple.exact_k_marginals(s, 3,
+                                                esp=simple.esp_sequential)
+
+        def fwd_bwd():
+            return torch.autograd.grad(simple.exact_k_marginals(x, 3), x, w)
+
+        err = (fwd() - seq()).abs().max().item()
+        if not err <= 1e-5:
+            raise AssertionError(f"simple DP at N={n}: log-depth against "
+                                 f"step-by-step {err}")
+        row = {"eval_ms": time_ms(fwd), "seq_eval_ms": time_ms(seq, iters=3),
+               "train_ms": time_ms(fwd_bwd), "max_abs_vs_seq": err}
+        for name, fn in (("eval", fwd), ("train", fwd_bwd), ("seq_eval", seq)):
+            launches = {}
+            _, fam = device_profile(fn, launches)
+            row[name + "_kernels"] = sum(launches.values())
+            row[name + "_device_ms"] = sum(fam.values())
+        out[n] = row
+    return out
+
+
+def shares(cost_by_n, per_bucket, weights, key):
+    """Per bucket ``cost / bucket time`` and the mix-weighted blend
+    ``sum w * cost / sum w * time``."""
+    by, num, den = {}, 0.0, 0.0
+    for bkey, entry in per_bucket.items():
+        n = int(bkey.strip("()").split(",")[0])
+        by[bkey] = cost_by_n[n] / entry[key]
+        num += weights[bkey] * cost_by_n[n]
+        den += weights[bkey] * entry[key]
+    return by, num / den
+
+
+def phase_samplers(gumbel_train_syncs):
+    """Phase 11: the imle, aimle and simple samplers through serving, the
+    whole forward, the train step and the bench.  Returns each sampler's
+    bench launch counts."""
+    import torch
+    from isubgvqa_tpu_torch import bench, ops
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    inf = bench.build_bench_setup(bench._cfg("imle", BENCH_B, "bfloat16"),
+                                  num_batches=4, device=dev)
+    trn = bench.build_bench_setup(
+        bench._cfg("imle", BENCH_TRAIN_B, "bfloat16"), num_batches=8,
+        device=dev, train=True)
+    log(f"[11 samplers] fixtures: {len(inf.ds)} samples for B={BENCH_B}, "
+        f"{len(trn.ds)} for B={BENCH_TRAIN_B}, in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    weights = {str(k): w for k, w in inf.bucket_weight.items()}
+    tweights = {str(k): w for k, w in trn.bucket_weight.items()}
+    parity_key = max(trn.bucket_batches)         # (128, 32): the largest
+    parity_batch = trn.bucket_batches[parity_key][0].to(dev)
+    sync_batch = next(iter(trn.bucket_batches.values()))[0].to(dev)
+    gumbel_waits = sum(v for k, v in gumbel_train_syncs.items()
+                       if "Synchronize" in k)
+    counts, rows = {}, {}
+
+    def counted(name, wrappers, fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = ops.launch_counts(wrappers)
+        if min(got.values()) == 0:
+            raise AssertionError(f"{name}: a kernel never launched: {got}")
+        counts[name] = got
+        log(f"[11 samplers] {name}: {json.dumps(out)}")
+        log(f"[11 samplers] {name} launches: {json.dumps(got)}")
+        return out
+
+    for sampler in SAMPLERS:
+        t0 = time.perf_counter()
+        serve_sampler(sampler)
+
+        # (b) the whole eval forward, kernel path against plain path
+        isetup = bench.for_sampler(trn, sampler)
+        err, std, frac, agree, real, err16, bad = whole_forward_parity(
+            isetup.model, isetup.vocab, parity_batch, isetup.aimle_states)
+        if not (err16 <= BENCH_BF16_LOGITS_TOL and frac >= BENCH_TOP1_FLOOR):
+            raise AssertionError(
+                f"{sampler} B={BENCH_TRAIN_B} bf16: logits max abs "
+                f"{err16:.3g} (bound {BENCH_BF16_LOGITS_TOL}), top-1 "
+                f"agreement {frac:.4f} (floor {BENCH_TOP1_FLOOR})")
+        log(f"[11 samplers] {sampler} (b) kernel against plain, "
+            f"B={BENCH_TRAIN_B} bucket {parity_key}: f32 (TF32 off) "
+            f"logits max abs {err:.3g} (bound 1e-4, logits std {std:.3g}), "
+            f"node_mask identical; bf16 logits max abs {err16:.3g} (bound "
+            f"{BENCH_BF16_LOGITS_TOL}), top-1 agreement {frac:.4f} "
+            f"({agree}/{real}, floor {BENCH_TOP1_FLOOR}), {bad} "
+            f"disagreements where the margin exceeds twice the difference")
+        del isetup
+
+        # (c) one f32 train step, kernel path against plain path
+        tsetup = bench.for_sampler(trn, sampler, train=True)
+        phase_train_step_parity(tsetup.state, tsetup.vocab, parity_batch,
+                                tag=f"[11 samplers] {sampler} (c)",
+                                aimle_beta=AIMLE_BETA)
+
+        # (d) the host's waits on the device in one train step
+        step = bench.make_train_step(tsetup.state.model,
+                                     tsetup.state.optimizer, tsetup.cfg)
+        step(tsetup.state, sync_batch)
+        syncs = host_syncs(lambda: step(tsetup.state, sync_batch))
+        waits = sum(v for k, v in syncs.items() if "Synchronize" in k)
+        if waits > gumbel_waits:
+            raise AssertionError(f"{sampler}: {waits} host waits in a train "
+                                 f"step against gumbel's {gumbel_waits}")
+        log(f"[11 samplers] {sampler} (d) host waits on the device in one "
+            f"train step at {BENCH_TRAIN_B}: {json.dumps(syncs)} (gumbel "
+            f"{json.dumps(gumbel_train_syncs)})")
+        del tsetup, step
+        torch.cuda.empty_cache()
+
+        # (e) the bench's rows, with their launches
+        row = counted(f"{sampler} bench_inference", ops.EVAL_WRAPPERS,
+                      lambda: bench.bench_inference(
+                          setup=bench.for_sampler(inf, sampler)))
+        train = counted(f"{sampler} bench_train_step", ops.TRAIN_WRAPPERS,
+                        lambda: bench.bench_train_step(
+                            setup=bench.for_sampler(trn, sampler,
+                                                    train=True)))
+        rows[sampler] = row, train
+        torch.cuda.empty_cache()
+
+        # the sampler's own share of a batch and of a step
+        eval_ms = {n: sampler_ms(sampler, BENCH_B, n, False)
+                   for n in NODE_CAPS}
+        train_ms = {n: sampler_ms(sampler, BENCH_TRAIN_B, n, True)
+                    for n in NODE_CAPS}
+        by_bucket, blended = shares({n: v[0] for n, v in eval_ms.items()},
+                                    row["per_bucket"], weights,
+                                    "ms_per_batch")
+        tby_bucket, tblended = shares({n: v[0] for n, v in train_ms.items()},
+                                      train["per_bucket"], tweights,
+                                      "ms_per_step")
+        _, dev_blended = shares({n: v[2] for n, v in eval_ms.items()},
+                                row["per_bucket"], weights, "ms_per_batch")
+        _, tdev_blended = shares({n: v[2] for n, v in train_ms.items()},
+                                 train["per_bucket"], tweights,
+                                 "ms_per_step")
+        log(f"[11 samplers] {sampler} sampler alone: " + json.dumps({
+            "eval_ms_kernels_device_ms_at_2048": eval_ms,
+            "train_fwd_bwd_ms_kernels_device_ms_at_256": train_ms,
+            "share_of_batch": by_bucket, "blended_share_of_batch": blended,
+            "share_of_step": tby_bucket, "blended_share_of_step": tblended,
+            "blended_device_share_of_batch": dev_blended,
+            "blended_device_share_of_step": tdev_blended}))
+        log(f"[11 samplers] {sampler} in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    dp = simple_dp_ms()
+    row, train = rows["simple"]
+    eval_share, eval_blend = shares({n: v["eval_ms"] for n, v in dp.items()},
+                                    row["per_bucket"], weights,
+                                    "ms_per_batch")
+    train_share, train_blend = shares(
+        {n: v["train_ms"] for n, v in dp.items()}, train["per_bucket"],
+        tweights, "ms_per_step")
+    _, eval_dev = shares({n: v["eval_device_ms"] for n, v in dp.items()},
+                         row["per_bucket"], weights, "ms_per_batch")
+    _, train_dev = shares({n: v["train_device_ms"] for n, v in dp.items()},
+                          train["per_bucket"], tweights, "ms_per_step")
+    log("[11 samplers] simple's marginals DP alone: " + json.dumps({
+        "by_node_cap": dp, "share_of_batch": eval_share,
+        "blended_share_of_batch": eval_blend, "share_of_step": train_share,
+        "blended_share_of_step": train_blend,
+        "blended_device_share_of_batch": eval_dev,
+        "blended_device_share_of_step": train_dev}))
+    log(f"[11 samplers] phase {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -1519,7 +1834,8 @@ def main() -> int:
     phase_train_step_parity(state, vocab, batch)
     del state, batch
     torch.cuda.empty_cache()
-    bench_counts = phase_bench()
+    bench_counts, gumbel_train_syncs = phase_bench()
+    bench_counts.update(phase_samplers(gumbel_train_syncs))
     line = []
     for k, (src, replaces) in KERNELS.items():
         r = entries[(k, torch.bfloat16)]

@@ -1,11 +1,12 @@
 """ISubGVQA in PyTorch for one NVIDIA H100: the port of the JAX
 package ``isubgvqa_tpu``, which stays the reference.
 
-This slice covers the batched eval forward of the config of record
-(gumbel sampler, k = 3, masks (1, 1, 1, 0.15)) behind the serving
-:class:`~isubgvqa_tpu_torch.serve.Predictor`, with the four fused layers
-of that path as hand-written CUDA kernels (:mod:`.ops`, sources in
-``csrc/``).  Entry points run on ``cuda`` unless the caller passes
+It covers the batched eval forward of the config of record (k = 3,
+masks (1, 1, 1, 0.15)) behind the serving
+:class:`~isubgvqa_tpu_torch.serve.Predictor` and its training step,
+under each of the four samplers (gumbel, imle, aimle, simple), with the
+eight fused layers of those paths as hand-written CUDA kernels
+(:mod:`.ops`, sources in ``csrc/``).  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 """
 

@@ -29,7 +29,9 @@ The port of the JAX package's root ``bench.py``, by the same method:
 Prints the per-bucket breakdown as JSON lines on stderr and one JSON
 line on stdout.  ``--e2e`` adds the end-to-end pipeline (bucketed
 iterator, Python collate, :func:`~isubgvqa_tpu_torch.data.prefetch` to
-the card, forward); ``--full`` adds that and the training step.  On a
+the card, forward); ``--full`` adds that, the inference rows of the imle,
+aimle and simple samplers and the training step of all four, as the
+root ``bench.py --full`` does.  On a
 CUDA device the fused layers run their CUDA kernels; without CUDA the
 bench raises unless ``--device cpu`` asks for the plain PyTorch path.
 """
@@ -52,7 +54,7 @@ from .config import Config
 from .data import (AnswerMap, HashWordTokenizer, SceneGraphVocab,
                    SyntheticGQA, build_bucket_collators,
                    iterate_batches_bucketed, prefetch, route_to_buckets)
-from .models.build import build_model, resolve_device
+from .models.build import build_model, make_aimle_states, resolve_device
 from .ops.flops import (batch_shape, forward_flops, peak_flops,
                         train_step_flops)
 from .train import create_train_state, make_train_step
@@ -120,6 +122,7 @@ class BenchSetup:
     device: torch.device
     model: Optional[torch.nn.Module] = None   # the eval model
     state: Optional[object] = None            # the train state
+    aimle_states: Optional[dict] = None       # the eval model's (aimle)
 
 
 def build_bench_setup(cfg: Config, num_batches: int = 12, min_timed: int = 4,
@@ -143,11 +146,24 @@ def build_bench_setup(cfg: Config, num_batches: int = 12, min_timed: int = 4,
     cfg = dataclasses.replace(cfg, num_answers=len(answers))
     setup = BenchSetup(cfg, vocab, ds, collators, bucket_batches,
                        bucket_weight, dev)
+    return for_sampler(setup, cfg.sampler_type, train)
+
+
+def for_sampler(setup: BenchSetup, sampler: str,
+                train: bool = False) -> BenchSetup:
+    """``setup``'s fixture and streams with an eval model (or with
+    ``train`` a train state) of ``sampler``, from ``cfg.seed``: the
+    samplers add no parameters, so every sampler gets the same
+    weights."""
+    cfg = dataclasses.replace(setup.cfg, sampler_type=sampler)
+    setup = dataclasses.replace(setup, cfg=cfg, model=None, state=None,
+                                aimle_states=None)
     if train:
-        setup.state = create_train_state(cfg, vocab, steps_per_epoch=8,
-                                         device=dev)
+        setup.state = create_train_state(cfg, setup.vocab, steps_per_epoch=8,
+                                         device=setup.device)
     else:
-        setup.model = build_model(cfg, vocab, dev)
+        setup.model = build_model(cfg, setup.vocab, setup.device)
+        setup.aimle_states = make_aimle_states(cfg, setup.device)
     return setup
 
 
@@ -226,9 +242,11 @@ def bench_inference(sampler: str = "gumbel", batch_size: int = 2048,
                     setup: Optional[BenchSetup] = None) -> dict:
     """Questions per second per bucket and blended, ms per batch,
     TFLOP/s and MFU of the eval forward (logits and the sampled node
-    mask) under ``torch.inference_mode()``, gumbel noise from one
+    mask) under ``torch.inference_mode()``, the sampler's noise from one
     explicit generator.  ``setup`` reuses a :func:`build_bench_setup`
-    (eval)."""
+    (eval).  The FLOPs are the model's matrix products, which no sampler
+    adds to (:mod:`~isubgvqa_tpu_torch.ops.flops`), so every sampler's
+    row divides by the same count."""
     if setup is None:
         setup = build_bench_setup(_cfg(sampler, batch_size, dtype, node_caps),
                                   iters, device=device)
@@ -238,7 +256,8 @@ def bench_inference(sampler: str = "gumbel", batch_size: int = 2048,
 
     def run_one(batch):
         with torch.inference_mode():
-            out = model(batch, generator=gen)
+            out = model(batch, generator=gen,
+                        aimle_states=setup.aimle_states)
         return out.logits, out.node_mask
 
     per_bucket = {}
@@ -301,7 +320,8 @@ def bench_e2e(sampler: str = "gumbel", batch_size: int = 2048,
 
     def forward(batch):
         with torch.inference_mode():
-            out = model(batch, generator=gen)
+            out = model(batch, generator=gen,
+                        aimle_states=setup.aimle_states)
         return out.logits, out.node_mask
 
     for batches in setup.bucket_batches.values():
@@ -345,7 +365,9 @@ def bench_train_step(sampler: str = "gumbel", batch_size: int = 256,
     port's ``make_train_step`` on ``create_train_state``, ms per step and
     training questions per second per bucket and blended by the bucket
     mix, TFLOP/s and MFU of the step's products.  ``setup`` reuses a
-    :func:`build_bench_setup` with ``train``."""
+    :func:`build_bench_setup` with ``train``.  The FLOPs are the step's
+    matrix products, which no sampler adds to (a sampler's backward makes
+    none), so every sampler's row divides by the same count."""
     if setup is None:
         setup = build_bench_setup(_cfg(sampler, batch_size, dtype, node_caps),
                                   iters, device=device, train=True)
@@ -392,8 +414,9 @@ def bench_train_step(sampler: str = "gumbel", batch_size: int = 256,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--full", action="store_true",
-                    help="also the end-to-end pipeline and the training "
-                         "step (gumbel; the other samplers are not ported)")
+                    help="also the end-to-end pipeline, the inference rows "
+                         "of imle, aimle and simple, and the training step "
+                         "of all four samplers")
     ap.add_argument("--e2e", action="store_true",
                     help="also the end-to-end pipeline")
     ap.add_argument("--device", default=None,
@@ -413,13 +436,16 @@ def main(argv=None) -> int:
     if args.e2e or args.full:
         print(json.dumps(bench_e2e(setup=setup)), file=sys.stderr)
     if args.full:
-        print(json.dumps({"not_run": ["imle", "aimle", "simple"],
-                          "reason": "the other samplers are not ported yet "
-                                    "(ROADMAP.md, Queue 1 item 10)"}),
-              file=sys.stderr)
-        print(json.dumps(bench_train_step(
-            "gumbel", args.train_batch, node_caps=args.node_caps,
-            device=args.device)), file=sys.stderr)
+        for sampler in ("imle", "aimle", "simple"):
+            print(json.dumps(bench_inference(
+                setup=for_sampler(setup, sampler))), file=sys.stderr)
+        tsetup = build_bench_setup(
+            _cfg("gumbel", args.train_batch, "bfloat16", args.node_caps), 8,
+            device=args.device, train=True)
+        for sampler in ("gumbel", "imle", "aimle", "simple"):
+            print(json.dumps(bench_train_step(
+                setup=for_sampler(tsetup, sampler, train=True))),
+                file=sys.stderr)
     print(json.dumps({
         "metric": "GQA questions/sec/chip (batched inference, ISubGVQA "
                   "forward + discrete subgraph extraction, GQA-realistic "

@@ -14,6 +14,8 @@ written here so the port never imports the JAX package.  Layouts:
   prepacking of the TPU kernel is derived from ``att`` and never stored;
 * BatchNorm running statistics come from ``batch_stats``.
 
+:func:`aimle_states_from_jax` carries the aimle sampler's adaptive
+states (the JAX train state's ``aimle_states``) across.
 :func:`load_upstream_state_dict` reads an upstream ``.pth`` payload, and
 :func:`load_clip_text_tables` the pretrained CLIP text tables that
 ``cfg.clip_weights`` names (the port's copy of
@@ -24,10 +26,12 @@ spellings).
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from .sampling.aimle import AIMLEState
 
 
 def _t(a) -> torch.Tensor:
@@ -152,6 +156,24 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
 # upstream modules that its forward never uses (see the JAX converter)
 _UNUSED = ("gate_nn", "emb_proj", "pos_encoder", "node_logits",
            "num_batches_tracked")
+
+
+def aimle_states_from_jax(states: Optional[Mapping],
+                          device=None) -> Optional[Dict[int, AIMLEState]]:
+    """The JAX package's ``{layer: AIMLEState}`` (its ``beta``,
+    ``grad_norm`` and ``prev_update`` as arrays) -> the port's AIMLE
+    states, 0-d f32 tensors on ``device`` (``cpu`` by default); ``None``
+    stays ``None``."""
+    if states is None:
+        return None
+
+    def field(st, name):
+        return torch.tensor(float(np.asarray(getattr(st, name), np.float32)),
+                            dtype=torch.float32, device=device)
+
+    return {int(i): AIMLEState(*(field(st, f) for f in
+                                 ("beta", "grad_norm", "prev_update")))
+            for i, st in states.items()}
 
 
 def load_upstream_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:

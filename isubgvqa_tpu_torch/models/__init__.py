@@ -1,6 +1,8 @@
-"""Models of the port (eval forward of the config of record)."""
+"""Models of the port (the eval and training forward of the config of
+record under each of the four samplers)."""
 
-from .build import build_model, resolve_device
+from .build import build_model, make_aimle_states, resolve_device
 from .isubgvqa import ISubGVQA, ModelOutput
 
-__all__ = ["build_model", "resolve_device", "ISubGVQA", "ModelOutput"]
+__all__ = ["build_model", "make_aimle_states", "resolve_device", "ISubGVQA",
+           "ModelOutput"]

@@ -2,11 +2,12 @@
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
 from ..config import Config
+from ..sampling import AIMLEState, init_aimle_state
 from .isubgvqa import DTYPES, ISubGVQA
 
 
@@ -23,17 +24,14 @@ def resolve_device(device=None) -> torch.device:
 
 def check_supported(cfg: Config) -> None:
     """The port covers the eval forward and the training step of the
-    config of record; the other variants are still to port (ROADMAP.md,
-    Queue 1)."""
+    config of record under each of the four samplers; the other variants
+    are still to port (ROADMAP.md, Queue 1)."""
     unsupported = [name for name in (
         "text_sampling", "use_all_instrs", "concat_instr", "use_global_mask",
         "interpretable_mode", "node_classification")
         if getattr(cfg, name)]
     if not (cfg.use_instruction and cfg.use_topk):
         unsupported.append("use_instruction/use_topk off")
-    if any(float(t) != 1.0 for t in cfg.mgat_masks) \
-            and cfg.sampler_type != "gumbel":
-        unsupported.append(f"sampler_type={cfg.sampler_type!r}")
     if unsupported:
         raise NotImplementedError(
             f"not ported yet: {', '.join(unsupported)}")
@@ -83,3 +81,16 @@ def apply_clip_text_tables(model: ISubGVQA, tables) -> None:
                 f"text_vocab_size / question-position config")
         with torch.no_grad():
             dst.copy_(src.to(dst.dtype))
+
+
+def make_aimle_states(cfg: Config,
+                      device=None) -> Optional[Dict[int, AIMLEState]]:
+    """One AIMLE state per masked layer (threshold != 1.0), keyed by the
+    layer's index, on ``device`` (the card unless the caller asks for
+    another); ``None`` for the other samplers (the port of
+    ``isubgvqa_tpu/models/build.py:make_aimle_states``)."""
+    if cfg.sampler_type != "aimle":
+        return None
+    dev = resolve_device(device)
+    return {i: init_aimle_state(dev)
+            for i, t in enumerate(cfg.mgat_masks) if float(t) != 1.0}

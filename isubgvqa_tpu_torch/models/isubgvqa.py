@@ -13,8 +13,8 @@ plain versions run.  Products run at ``cfg.compute_dtype``: an eval
 model holds its weight matrices at that dtype (:meth:`ISubGVQA.cast_`),
 a training model holds f32 masters that every call casts, so their
 gradients stay f32 (flax ``Dense(dtype=...)`` with f32 params).
-``forward(train=True)`` draws every dropout mask and the gumbel noise
-from the caller's generator and updates the BatchNorm running
+``forward(train=True)`` draws every dropout mask and then the sampler's
+noise from the caller's generator and updates the BatchNorm running
 statistics.
 """
 
@@ -64,7 +64,10 @@ class ISubGVQA(nn.Module):
         self.scene_graph_encoder = SceneGraphEncoder(
             sg_vocab_size, hid, sg_vocab_vectors)
         self.gat_seq = MGAT(hid, cfg.mgat_layers, cfg.gat_heads,
-                            cfg.mgat_masks, cfg.sample_k, cfg.mask_dropout)
+                            cfg.mgat_masks, cfg.sample_k, cfg.mask_dropout,
+                            sampler_type=cfg.sampler_type,
+                            nb_samples=cfg.nb_samples, alpha=cfg.alpha,
+                            beta=cfg.beta, tau=cfg.tau)
         self.graph_global_attention_pooling = GlobalAttentionPooling(hid, hid)
         self.qsts_reduction = mlp(tdim * cfg.mgat_layers, hid)
         self.instr_reduction = mlp(tdim, hid)
@@ -91,10 +94,14 @@ class ISubGVQA(nn.Module):
     def forward(self, batch: GraphBatch,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
-                train: bool = False) -> ModelOutput:
-        """Eval (``train=False``) or training forward.  Gumbel noise for
-        the masked layer, and in training every dropout mask, come from
-        ``generator``; ``noise [B, N]`` replaces the gumbel draw."""
+                train: bool = False,
+                aimle_states: Optional[dict] = None) -> ModelOutput:
+        """Eval (``train=False``) or training forward.  The sampler's noise
+        for the masked layer, and in training every dropout mask, come
+        from ``generator``; ``noise`` replaces the sampler's standard
+        Gumbel draw (its shape per sampler: :mod:`.masking`).
+        ``aimle_states`` (:func:`~.build.make_aimle_states`) maps a masked
+        layer to its AIMLE state, which a training backward updates."""
         cfg = self.cfg
         if batch.node_mask.is_cuda and not cfg.use_pallas:
             raise ValueError("use_pallas=False: on a CUDA device the port "
@@ -110,7 +117,8 @@ class ISubGVQA(nn.Module):
 
         x_enc, e_enc = self.scene_graph_encoder(batch, dtype, train)
         h, node_mask, _ = self.gat_seq(x_enc, batch, e_enc, instr, lang,
-                                       generator, noise, dtype, train)
+                                       generator, noise, dtype, train,
+                                       aimle_states)
         pooled, gate = self.graph_global_attention_pooling(
             h, lang, batch.node_mask, node_mask, dtype)
 

@@ -2,10 +2,11 @@
 
 Per layer: instruction fusion ``gelu(h * instr)``; on a masked layer
 (threshold != 1.0, the last one in the config of record) the mask head
-samples a node gate; then the layer itself.  Eval runs one
-:func:`~isubgvqa_tpu_torch.ops.gat_kernel.fused_gat_layer` call (the
-GATv2 conv, x_proj, the instruction SDP reweighting, GraphNorm and the
-residual); on unmasked layers the kernel computes the instruction fusion
+samples a node gate with the configured sampler (aimle with the layer's
+own adaptive state, as in ``mgat.py:326-343``); then the layer itself.
+Eval runs one :func:`~isubgvqa_tpu_torch.ops.gat_kernel.fused_gat_layer`
+call (the GATv2 conv, x_proj, the instruction SDP reweighting, GraphNorm
+and the residual); on unmasked layers the kernel computes the instruction fusion
 itself (``fuse_instr``), as the TPU path does.  Training computes
 ``gelu(h * instr)`` in plain torch on every layer (``fuse_instr`` is
 eval-only, ``mgat.py:172-173``) and runs
@@ -37,7 +38,8 @@ class MGATConv(nn.Module):
     """``MaskingGATv2Conv`` parameters (``mgat_v2_conv.py``)."""
 
     def __init__(self, channels: int, heads: int, masked: bool,
-                 sample_k: Optional[int], mask_dropout: float = 0.2):
+                 sample_k: Optional[int], mask_dropout: float = 0.2,
+                 **sampler):
         super().__init__()
         hc = heads * channels
         self.lin_l = nn.Linear(channels, hc)
@@ -46,19 +48,24 @@ class MGATConv(nn.Module):
         self.att = nn.Parameter(torch.empty(1, heads, channels))
         self.bias = nn.Parameter(torch.zeros(hc))
         nn.init.xavier_uniform_(self.att)
-        self.mask = (MaskingModel(channels, channels, sample_k, mask_dropout)
+        self.mask = (MaskingModel(channels, channels, sample_k, mask_dropout,
+                                  **sampler)
                      if masked else None)
 
 
 class MGAT(nn.Module):
     def __init__(self, channels: int = 300, num_ins: int = 4, heads: int = 4,
                  masking_thresholds: Sequence[float] = (1.0, 1.0, 1.0, 0.15),
-                 sample_k: Optional[int] = None, mask_dropout: float = 0.2):
+                 sample_k: Optional[int] = None, mask_dropout: float = 0.2,
+                 **sampler):
+        """``sampler`` holds the mask head's sampler options
+        (``sampler_type``, ``nb_samples``, ``alpha``, ``beta``, ``tau``)."""
         super().__init__()
         self.heads = heads
         masked = [float(t) != 1.0 for t in masking_thresholds]
         self.convs = nn.ModuleList(
-            [MGATConv(channels, heads, masked[i], sample_k, mask_dropout)
+            [MGATConv(channels, heads, masked[i], sample_k, mask_dropout,
+                      **sampler)
              for i in range(num_ins)])
         self.x_proj = nn.ModuleList(
             [mlp(heads * channels, channels * heads // 2, channels)
@@ -79,8 +86,10 @@ class MGAT(nn.Module):
     def forward(self, x, batch, edge_attr, instr_vectors, lang,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
-                dtype: Optional[torch.dtype] = None, train: bool = False):
-        """-> (h [B, N, C], last mask [B, N, 1] | None, alphas)."""
+                dtype: Optional[torch.dtype] = None, train: bool = False,
+                aimle_states: Optional[dict] = None):
+        """-> (h [B, N, C], last mask [B, N, 1] | None, alphas).  Masked
+        layer ``i`` samples with ``aimle_states[i]`` (aimle only)."""
         h = x
         mask = None
         alphas = []
@@ -90,7 +99,7 @@ class MGAT(nn.Module):
             xf = h if fuse else F.gelu(h * ins[:, None, :])
             if conv.mask is not None:
                 gate = conv.mask(xf, lang, batch.node_mask, generator, noise,
-                                 dtype, train)
+                                 dtype, train, (aimle_states or {}).get(i))
                 mask = gate
             else:
                 gate = torch.ones(h.shape[:2] + (1,), dtype=h.dtype,

@@ -120,3 +120,16 @@ def gumbel_topk_sample(scores: torch.Tensor, cfg: GumbelSamplerConfig,
     else:
         res = khot
     return res.reshape(repeat, b, n)
+
+
+def gumbel_validation(scores: torch.Tensor, cfg: GumbelSamplerConfig,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``GumbelSampler.validation`` (``gumbel.py:155-168``): the
+    deterministic top-k ``[1, B, N]`` when ``val_ensemble == 1``, else the
+    noisy eval forward.  The mask head never calls it (its eval runs
+    :func:`gumbel_topk_sample`, as the reference's does)."""
+    if cfg.val_ensemble == 1:
+        return topk_mask(scores.detach(), min(cfg.k, scores.shape[-1]))[None]
+    return gumbel_topk_sample(scores, cfg, train=False, generator=generator,
+                              noise=noise)

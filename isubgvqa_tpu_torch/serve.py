@@ -29,7 +29,7 @@ from .data.gqa import AnswerMap, Sample
 from .data.scene_graph import convert_scene_graph
 from .data.tokenizer import build_tokenizer
 from .data.vocab import SceneGraphVocab
-from .models.build import build_model, resolve_device
+from .models.build import build_model, make_aimle_states, resolve_device
 
 
 @dataclasses.dataclass
@@ -50,7 +50,10 @@ def batch_seed(seed: int, batch_index: int) -> int:
 class Predictor:
     def __init__(self, cfg: Config, vocab: SceneGraphVocab,
                  answers: AnswerMap, state_dict=None, device=None,
-                 topk: int = 5):
+                 topk: int = 5, aimle_states=None):
+        """``aimle_states`` (aimle only; a fresh state per masked layer by
+        default) is handed to every eval forward, which never changes it,
+        as the JAX Predictor's is (``serve.py:63,76``)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.vocab = vocab
@@ -58,6 +61,9 @@ class Predictor:
         self.topk = topk
         self.model = build_model(cfg, vocab, self.device,
                                  state_dict=state_dict)
+        self.aimle_states = (
+            {i: st.to(self.device) for i, st in aimle_states.items()}
+            if aimle_states else make_aimle_states(cfg, self.device))
         self.tokenizer = build_tokenizer(cfg.clip_tokenizer_dir,
                                          max_len=cfg.question_len,
                                          vocab_size=cfg.text_vocab_size)
@@ -100,7 +106,8 @@ class Predictor:
 
     def _forward(self, batch, generator: torch.Generator):
         with torch.no_grad():
-            out = self.model(batch.to(self.device), generator=generator)
+            out = self.model(batch.to(self.device), generator=generator,
+                             aimle_states=self.aimle_states)
         return out.logits, out.node_mask, out.gate
 
     def predict(self, questions: Sequence[str], scene_graphs: Sequence[dict],

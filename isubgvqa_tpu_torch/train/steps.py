@@ -1,9 +1,11 @@
 """Train and eval steps (the port of ``isubgvqa_tpu/train/steps.py``).
 
-One training step: forward with ``train=True`` (dropout, the gumbel
-sampler's train branch, BatchNorm on batch statistics), cross-entropy
-over the real samples, backward, then the optimizer's clip / skip /
-Adam.  Padding samples carry ``sample_mask == 0`` and add neither loss
+One training step: forward with ``train=True`` (dropout, the sampler's
+train branch, BatchNorm on batch statistics), cross-entropy over the
+real samples, backward (which with the aimle sampler also updates the
+state's AIMLE states in place: the JAX package reads them from the state
+input's cotangent, ``steps.py:84-101``), then the optimizer's clip /
+skip / Adam.  Padding samples carry ``sample_mask == 0`` and add neither loss
 nor metrics.  Every random draw of a step comes from one
 ``torch.Generator`` seeded from ``cfg.seed`` and the step (the JAX
 package folds the step into its key, ``steps.py:82``).
@@ -57,7 +59,8 @@ def make_train_step(model: ISubGVQA, optimizer: Optimizer, cfg: Config):
         gen = generator or step_generator(cfg, state.step,
                                           batch.node_mask.device)
         model.zero_grad(set_to_none=True)
-        out = model(batch, generator=gen, train=True)
+        out = model(batch, generator=gen, train=True,
+                    aimle_states=state.aimle_states)
         loss = cross_entropy_loss(out.logits, batch.labels, batch.sample_mask)
         loss.backward()
         grad_norm = optimizer.step()
@@ -78,7 +81,8 @@ def make_eval_step(model: ISubGVQA, cfg: Config):
     def eval_step(state: TrainState, batch: GraphBatch,
                   generator: Optional[torch.Generator] = None):
         with torch.no_grad():
-            out = model(batch, generator=generator, train=False)
+            out = model(batch, generator=generator, train=False,
+                        aimle_states=state.aimle_states)
             loss = cross_entropy_loss(out.logits, batch.labels,
                                       batch.sample_mask)
             metrics = _metrics(out.logits, batch.labels, batch.sample_mask,

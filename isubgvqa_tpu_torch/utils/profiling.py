@@ -1,11 +1,17 @@
 """Profiling hooks (the port of ``isubgvqa_tpu/utils/profiling.py``):
 a ``torch.profiler`` trace around a region, and per-step wall times with
-the device's peak memory.  Both cost nothing when disabled."""
+the device's peak memory.  Both cost nothing when disabled.  Beside
+them, :func:`gc_pauses` reports the collector's long pauses, which land
+in whichever timed chunk they fall in (``with gc_pauses():
+bench.main(["--full"])``)."""
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import json
 import os
+import sys
 import time
 from typing import Iterator, Optional
 
@@ -66,3 +72,29 @@ class StepProfiler:
         stats.update(mean_s=float(arr.mean()), p50_s=float(np.median(arr)),
                      p95_s=float(np.percentile(arr, 95)))
         return stats
+
+
+@contextlib.contextmanager
+def gc_pauses(min_ms: float = 5.0, file=None) -> Iterator[None]:
+    """While open, print each garbage collection that holds the
+    interpreter for ``min_ms`` or more as one JSON line
+    (``gc_pause_ms``, ``generation``, ``collected``) on ``file``
+    (standard error by default)."""
+    start = [0.0]
+
+    def note(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+            return
+        ms = (time.perf_counter() - start[0]) * 1e3
+        if ms >= min_ms:
+            print(json.dumps({"gc_pause_ms": ms,
+                              "generation": info["generation"],
+                              "collected": info["collected"]}),
+                  file=file or sys.stderr, flush=True)
+
+    gc.callbacks.append(note)
+    try:
+        yield
+    finally:
+        gc.callbacks.remove(note)

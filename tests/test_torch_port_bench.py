@@ -253,6 +253,27 @@ def test_bench_train_step_on_cpu(cpu_setup):
         flops.train_step_flops(setup.cfg, 1, 32, 128, 12))
 
 
+@pytest.mark.parametrize("sampler", ["imle", "aimle", "simple"])
+def test_bench_rows_of_the_other_samplers_on_cpu(cpu_setup, sampler):
+    """``--full``'s rows: the inference row and the train-step row of each
+    sampler on the gumbel setup's fixture, with the same FLOPs a question
+    as the gumbel rows (a sampler adds no matrix product)."""
+    setup = bench.for_sampler(cpu_setup, sampler)
+    assert setup.bucket_batches is cpu_setup.bucket_batches
+    assert (setup.aimle_states is not None) == (sampler == "aimle")
+    out = bench.bench_inference(setup=setup)
+    assert out["sampler"] == sampler
+    _finite(out, ("qps_per_chip", "ms_per_batch", "tflops_per_sec"))
+    gumbel = bench.bench_inference(setup=cpu_setup)
+    assert out["flops_per_question"] == gumbel["flops_per_question"]
+    tsetup = bench.for_sampler(cpu_setup, sampler, train=True)
+    train = bench.bench_train_step(setup=tsetup)
+    assert train["sampler"] == sampler and tsetup.state.step == 2
+    _finite(train, ("train_qps_per_chip", "ms_per_step"))
+    assert train["flops_per_question"] == pytest.approx(
+        flops.train_step_flops(setup.cfg, 1, 32, 128, 12))
+
+
 def test_bench_raises_without_cuda(monkeypatch):
     """No fallback: without CUDA and without ``--device cpu`` the bench
     raises before it builds anything."""

@@ -1049,3 +1049,58 @@ def test_bench_batch_2048_kernels_match_plain(card, dtype):
         same = kern.logits.argmax(-1) == plain.logits.argmax(-1)
         assert err <= 1e-2, err
         assert same[real].float().mean().item() >= 0.995
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["imle", "aimle", "simple"])
+def test_samplers_on_cuda_match_cpu(card, sampler):
+    """Each sampler's forward and backward on CUDA tensors against the same
+    call on the CPU (same scores with zero padding slots, noise and
+    cotangent, N = 128, two samples), with the card in sync-debug mode so
+    that a host wait in the sampler raises; aimle's state after the
+    backward within 1e-6.  Masks exactly; gradients within 1e-5 of their
+    scale (the norms and the marginals' log-sum-exps are summed in
+    another order on the card)."""
+    from isubgvqa_tpu_torch import sampling as smp
+
+    rng = np.random.default_rng(31)
+    b, n, s, k = 6, 128, 2, 3
+    scores = rng.normal(size=(b, n)).astype(np.float32)
+    scores[:, 100:] = 0.0
+    shape = (s, b, n) if sampler == "simple" else (b, s, n)
+    noise = rng.gumbel(size=shape).astype(np.float32)
+    dy = rng.normal(size=(s, b, n)).astype(np.float32)
+
+    def run(dev):
+        x = torch.from_numpy(scores).to(dev).requires_grad_()
+        z, d = torch.from_numpy(noise).to(dev), torch.from_numpy(dy).to(dev)
+        st = smp.init_aimle_state(dev, initial_beta=5.0)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            if sampler == "imle":
+                out = smp.imle_topk(x, smp.IMLEConfig(k=k, nb_samples=s,
+                                                      beta=1000.0), noise=z)
+            elif sampler == "aimle":
+                out = smp.aimle_topk(x, st, smp.AIMLEConfig(k=k, nb_samples=s),
+                                     noise=z)
+            else:
+                out = smp.simple_sample(
+                    x, smp.SimpleConfig(k=k, train_ensemble=s), True,
+                    noise=z)[0]
+            (g,) = torch.autograd.grad(out, x, d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return (out.detach().cpu().numpy(), g.cpu().numpy(),
+                [float(getattr(st, f)) for f in
+                 ("beta", "grad_norm", "prev_update")])
+
+    out_c, g_c, st_c = run("cpu")
+    out_g, g_g, st_g = run(DEVICE)
+    np.testing.assert_array_equal(np.round(out_g), np.round(out_c))
+    np.testing.assert_allclose(out_g, out_c, rtol=0, atol=1e-5)
+    assert np.any(g_c != 0)
+    np.testing.assert_allclose(g_g, g_c, rtol=0,
+                               atol=1e-5 * max(1.0, np.abs(g_c).max()))
+    np.testing.assert_allclose(st_g, st_c, rtol=0, atol=1e-6)

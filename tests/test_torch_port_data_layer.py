@@ -307,3 +307,18 @@ def test_step_profiler_summary():
     off = profiling.StepProfiler(enabled=False)
     off.step()
     assert off.summary() == {}
+
+
+def test_gc_pauses_reports_collections_while_open():
+    import gc
+    import io
+    import json
+
+    buf = io.StringIO()
+    with profiling.gc_pauses(min_ms=0.0, file=buf):
+        gc.collect()
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    assert any(ln["generation"] == 2 and ln["gc_pause_ms"] >= 0.0
+               for ln in lines)
+    gc.collect()                          # closed: nothing more is written
+    assert len(buf.getvalue().splitlines()) == len(lines)

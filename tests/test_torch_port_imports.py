@@ -48,6 +48,8 @@ def test_every_port_module_imports_without_cuda():
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    "isubgvqa_tpu_torch.")]
     assert "isubgvqa_tpu_torch.ops.gat_kernel" in names
+    for sampler in ("noise", "imle", "aimle", "simple"):
+        assert f"isubgvqa_tpu_torch.sampling.{sampler}" in names
     for name in names:
         importlib.import_module(name)
 
@@ -63,6 +65,7 @@ def test_port_modules_import_without_loading_jax():
         "'isubgvqa_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert 'isubgvqa_tpu_torch.train.steps' in names\n"
+        "assert 'isubgvqa_tpu_torch.sampling.aimle' in names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n")
