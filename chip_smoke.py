@@ -90,9 +90,28 @@ script exits non-zero):
     (eval at 2048, forward + backward at 256, each node cap) and its
     share of the bench's batch and step; last, simple's marginals DP
     alone (the log-depth scan beside the step-by-step DP) and its share;
+12. entry points: at the full width of the config of record (gumbel,
+    bf16, batch 256, the GQA-like synthetic mix of 4,096 training
+    questions, 8 or more steps an epoch over two or more node buckets),
+    ``isubgvqa_tpu_torch.cli.main`` trains 2 epochs (finite losses, the
+    checkpoints the policy writes), resumes from ``checkpoint`` for a
+    third (it starts at epoch 2 with the optimizer's count restored: the
+    printed learning rate is the schedule's at that count), and validates
+    ``checkpoint_lowest_val_loss`` with ``-e``; the ``run_token_coo``
+    entry explains 4 batches and prints the five metric lines; their
+    launch counts (every kernel at least once).  Then the Trainer's
+    checkpoint through ``Predictor.from_checkpoint`` against the Trainer's
+    model in f32 on one batch with the same noise (logits within 1e-6,
+    node mask identical); an epoch's wall time, ms a step, the host's
+    waits a step (at most 3 ``cudaStreamSynchronize``) and the validation
+    rate; ``run_token_coo_exp`` in f32 with the imle sampler through the
+    kernels and through the plain versions (equal sums; the smallest
+    top-1 logit gap beside the largest logit difference); the explain
+    bench at B = 2048 (8,192 dev questions) and the device's busy share
+    of one profiled explain batch;
 then the per-kernel JSON line (all eight kernels, with the bench's
-launches, phase 11's among them, beside the main path's) and the final
-``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
+launches, phase 11's and phase 12's among them, beside the main path's)
+and the final ``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
 the serving model is built.
 
 It needs one CUDA device and the CUDA toolkit; without them it exits
@@ -101,11 +120,17 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -634,10 +659,10 @@ def profile_serving(pred, questions, graphs):
         f"{busy:.2f} ms ({busy / wall:.1%}); by kernel: {by_kernel(families)}")
 
 
-def forward_path(model, batch, noise, plain, aimle_states=None):
-    """One eval forward through the kernels, or with ``plain`` through the
-    fused layers' plain versions, with the sampler's ``noise`` given."""
-    import torch
+@contextlib.contextmanager
+def eval_layers(plain):
+    """Inside, the model's eval forward runs the four fused layers' plain
+    versions when ``plain`` is true, else their kernels."""
     from isubgvqa_tpu_torch import ops
     from isubgvqa_tpu_torch.models import (mgat, question_decoder,
                                            question_encoder,
@@ -652,11 +677,19 @@ def forward_path(model, batch, noise, plain, aimle_states=None):
         if plain:
             for m, n in sites:
                 setattr(m, n, getattr(ops, n + "_plain"))
-        with torch.no_grad():
-            return model(batch, noise=noise, aimle_states=aimle_states)
+        yield
     finally:
         for (m, n), fn in zip(sites, saved):
             setattr(m, n, fn)
+
+
+def forward_path(model, batch, noise, plain, aimle_states=None):
+    """One eval forward through the kernels, or with ``plain`` through the
+    fused layers' plain versions, with the sampler's ``noise`` given."""
+    import torch
+
+    with eval_layers(plain), torch.no_grad():
+        return model(batch, noise=noise, aimle_states=aimle_states)
 
 
 def whole_forward_parity(model, vocab, batch, aimle_states=None):
@@ -1804,6 +1837,239 @@ def phase_samplers(gumbel_train_syncs):
     return counts
 
 
+ENTRY_SIZE = 4096            # phase 12's train questions: 8 or more steps of
+# 256 an epoch over two or more node buckets of the GQA-like mix
+EXPLAIN_B = 2048             # the explain bench's batch
+EXPLAIN_DEV = 8192           # its dev questions (a pass of 10 batches)
+MAX_SYNCS_PER_STEP = 3       # the optimizer's two bool() and one metric read
+
+
+def captured(fn, *args):
+    """``fn(*args)`` with its standard output kept; the output is echoed
+    and returned beside the result."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    return out, text
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output dropped."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def phase_entry_points():
+    """Phase 12: the port's entry points as a user runs them, on the card
+    at the full width of the config of record (bf16, batch 256, the
+    GQA-like synthetic mix): ``cli.main`` trains 2 epochs, resumes for a
+    third, and validates a checkpoint with ``-e``; the ``run_token_coo``
+    entry explains 4 batches.  Their launch counts, every kernel at least
+    once.  Then the Trainer's checkpoint in ``Predictor`` against the
+    Trainer's model in f32; an epoch's wall time, ms a step, the host's
+    waits a step and the validation rate; explanation through the kernels
+    and through the plain versions (imle, f32), whose sums must agree;
+    the explain rate at B = 2048 and the device's busy share of one
+    profiled explain batch.  Returns the entry points' launch counts."""
+    import torch
+    from isubgvqa_tpu_torch import bench, cli, ops, run_token_coo
+    from isubgvqa_tpu_torch.data import iterate_batches_bucketed
+    from isubgvqa_tpu_torch.explain import run_token_coo_exp
+    from isubgvqa_tpu_torch.models.build import build_model
+    from isubgvqa_tpu_torch.serve import Predictor
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    out = os.path.join(root, "out")
+    argv = ["--synthetic", "--synthetic_shape_mix", "gqa",
+            "--synthetic_size", str(ENTRY_SIZE), "--sampler_type", "gumbel",
+            "--sample_k", "3", "--mgat_masks", "1", "1", "1", "0.15",
+            "--compute_dtype", "bfloat16", "--batch-size", str(TRAIN_B),
+            "--meta_dir", "", "--output_dir", out]
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        # 1. train 2 epochs
+        t0 = time.perf_counter()
+        first, text = captured(cli.main, argv + ["--epochs", "2"])
+        train_s = time.perf_counter() - t0
+        losses = [float(v) for v in re.findall(
+            r"^Epoch: \[\d+\]\[.*\tLoss (\S+) ", text, re.M)]
+        val = re.findall(r"^Val epoch \[(\d+)\] dev: Acc@Short (\S+) "
+                         r"Loss (\S+)$", text, re.M)
+        if not (losses and len(val) == 2 and np.isfinite(losses).all()
+                and all(np.isfinite(float(v[2])) for v in val)):
+            raise AssertionError(f"training: losses {losses}, val {val}")
+        top = float(re.findall(r"so far was (\S+)", text)[-1])
+        names = set(os.listdir(out))
+        want = {"checkpoint", "checkpoint.meta.json",
+                "checkpoint_lowest_val_loss",
+                "checkpoint_lowest_val_loss.meta.json"}
+        if not want <= names or ("checkpoint_top_res" in names) != (top > 0):
+            raise AssertionError(f"checkpoints {sorted(names)} (top "
+                                 f"validation accuracy {top})")
+        count1 = first.state.optimizer.count
+        sched = first.state.optimizer.schedule
+        log(f"[12 entry] cli.main 2 epochs in {train_s:.1f} s: optimizer "
+            f"count {count1}, checkpoints {sorted(names)}")
+        del first
+        # 2. resume for a third epoch, then validate the lowest-loss one
+        resumed, text = captured(cli.main, argv + ["--epochs", "3",
+                                                   "--resume", "checkpoint"])
+        got = re.search(r"^=> step (\d+), optimizer count (\d+), learning "
+                        r"rate (\S+)$", text, re.M)
+        if not (got and int(got.group(2)) == count1
+                and float(got.group(3)) == sched(count1)
+                and "Epoch: [2][" in text and "Epoch: [1][" not in text):
+            raise AssertionError(f"resume: {got and got.group(0)}")
+        log(f"[12 entry] resumed at epoch 2: optimizer count {count1}, "
+            f"learning rate {got.group(3)} = schedule({count1}) "
+            f"{sched(count1)!r}")
+        evaluated, text = captured(cli.main, argv + [
+            "-e", "--resume", "checkpoint_lowest_val_loss"])
+        if not (re.search(r"^Val epoch \[-1\] dev: ", text, re.M)
+                and evaluated.state.optimizer.count == 0):
+            raise AssertionError("-e did not validate the model only")
+        del evaluated
+        res, _ = captured(run_token_coo.main, [
+            "--ckpt", os.path.join(out, "checkpoint_lowest_val_loss"),
+            "--max_batches", "4"])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if min(counts.values()) == 0:
+            raise AssertionError(f"entry points: a kernel never launched: "
+                                 f"{counts}")
+        log(f"[12 entry] launches of cli.main x 3 and run_token_coo: "
+            f"{json.dumps(counts)}")
+
+        # 3. the Trainer's checkpoint in Predictor, f32, same noise
+        trainer, data = resumed, resumed.data
+        cfg32 = dataclasses.replace(trainer.cfg, compute_dtype="float32")
+        pred = Predictor.from_checkpoint(os.path.join(out, "checkpoint"),
+                                         cfg=cfg32, device="cuda")
+        batch, _ = next(iter(iterate_batches_bucketed(
+            data.datasets["dev"], data.bucket_collators["dev"])))
+        batch = batch.to("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        noise = -torch.log(-torch.log(torch.rand(
+            batch.node_mask.shape, generator=gen,
+            device="cuda").clamp_min(1e-30)))
+        served = forward_path(pred.model, batch, noise, False)
+        model = trainer.state.model
+        saved_cfg, model.cfg = model.cfg, cfg32
+        try:
+            own = forward_path(model, batch, noise, False)
+        finally:
+            model.cfg = saved_cfg
+        err = (served.logits - own.logits).abs().max().item()
+        if not (err <= 1e-6 and torch.equal(served.node_mask,
+                                            own.node_mask)):
+            raise AssertionError(f"Predictor from the checkpoint: logits "
+                                 f"{err} from the Trainer's model")
+        log(f"[12 entry] Predictor.from_checkpoint against the Trainer's "
+            f"model, f32, B={batch.num_graphs}: logits max abs {err:.3g} "
+            f"(bound 1e-6), node mask identical")
+        del pred, served, own, batch
+
+        # the train epoch's wall, its steps and the host's waits a step
+        marks, shapes = [], set()
+        step = trainer.train_step
+
+        def marked(state, b):
+            marks.append(time.perf_counter())
+            shapes.add(tuple(b.node_tokens.shape[1:2]))
+            return step(state, b)
+
+        trainer.train_step = marked
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quiet(trainer.train_epoch, 3)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        n_steps = len(marks)
+        step_ms = statistics.median(np.diff(marks) * 1e3)
+        if n_steps < 8 or len(shapes) < 2:
+            raise AssertionError(f"an epoch of {n_steps} steps over node "
+                                 f"caps {shapes}")
+        marks.clear()
+        syncs = host_syncs(lambda: quiet(trainer.train_epoch, 4))
+        per_step = {k: v / len(marks) for k, v in syncs.items()}
+        if per_step.get("cudaStreamSynchronize", 0) > MAX_SYNCS_PER_STEP:
+            raise AssertionError(f"host waits a step: {per_step}")
+        trainer.train_step = step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quiet(trainer.validate_epoch, 4)
+        val_s = time.perf_counter() - t0
+        n_dev = len(data.datasets["dev"])
+        log(f"[12 entry] train epoch ({n_steps} steps of {TRAIN_B}, node "
+            f"caps {sorted(s[0] for s in shapes)}): {epoch_s:.2f} s, "
+            f"{step_ms:.1f} ms a step (median, host clock between steps); "
+            f"host calls a step {json.dumps(per_step)}; validation "
+            f"{n_dev} questions in {val_s:.2f} s, {n_dev / val_s:.0f} q/s")
+
+        # 4. explanation through the kernels and the plain versions
+        weights = torch.load(os.path.join(out, "checkpoint_lowest_val_loss"),
+                             map_location="cpu",
+                             weights_only=True)["state_dict"]
+        cfg16 = trainer.cfg
+        cfg_i = dataclasses.replace(cfg16, sampler_type="imle",
+                                    compute_dtype="float32")
+        model_i = build_model(cfg_i, data.vocab, "cuda", state_dict=weights)
+        del trainer, resumed
+        gap, diff = float("inf"), 0.0
+        for b, meta in iterate_batches_bucketed(
+                data.datasets["dev"], data.bucket_collators["dev"]):
+            b = b.to("cuda")
+            k = forward_path(model_i, b, None, False).logits[:meta.num_real]
+            p = forward_path(model_i, b, None, True).logits[:meta.num_real]
+            diff = max(diff, (k - p).abs().max().item())
+            top2 = p.topk(2, dim=-1).values
+            gap = min(gap, (top2[:, 0] - top2[:, 1]).min().item())
+        sums = []
+        for plain in (False, True):
+            with eval_layers(plain):
+                sums.append(quiet(lambda: run_token_coo_exp(model_i, data,
+                                                            cfg_i)))
+        if sums[0].sums != sums[1].sums:
+            raise AssertionError(f"explain sums: kernels {sums[0].sums}, "
+                                 f"plain {sums[1].sums}")
+        log(f"[12 entry] explain, imle f32, {n_dev} questions: sums equal "
+            f"through the kernels and the plain versions "
+            f"{json.dumps(sums[0].sums)}; smallest top-1 logit gap "
+            f"{gap:.3g}, largest logit difference {diff:.3g}")
+        del model_i
+        torch.cuda.empty_cache()
+
+        # the explain rate at 2048, and one profiled explain batch
+        row = bench.bench_explain(batch_size=EXPLAIN_B, dev_size=EXPLAIN_DEV,
+                                  passes=3, device="cuda")
+        log(f"[12 entry] bench_explain: {json.dumps(row)}")
+        model = build_model(cfg16, data.vocab, "cuda", state_dict=weights)
+
+        def one_batch():
+            quiet(lambda: run_token_coo_exp(model, data, cfg16,
+                                            max_batches=1))
+
+        one_batch()                                   # warm-up, unprofiled
+        wall, fam = device_profile(one_batch)
+        busy = sum(fam.values())
+        log(f"[12 entry] one profiled explain batch (B="
+            f"{cfg16.batch_size * cfg16.eval_batch_factor}, bf16, the "
+            f"checkpoint's weights, collate included): wall {wall:.1f} ms, "
+            f"device busy {busy:.2f} ms "
+            + (f"({busy / wall:.1%}); by kernel: {by_kernel(fam)}" if busy
+               else "(not measured: no CUDA events)"))
+        del res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[12 entry] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1836,6 +2102,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_counts, gumbel_train_syncs = phase_bench()
     bench_counts.update(phase_samplers(gumbel_train_syncs))
+    torch.cuda.empty_cache()
+    bench_counts["entry_points"] = phase_entry_points()
     line = []
     for k, (src, replaces) in KERNELS.items():
         r = entries[(k, torch.bfloat16)]

@@ -1,7 +1,7 @@
 """Bench of the port: batched GQA inference, the end-to-end eval
 pipeline and the training step, in questions per second on one card.
 
-    python -m isubgvqa_tpu_torch.bench [--full] [--e2e] [--device cpu]
+    python -m isubgvqa_tpu_torch.bench [--full] [--e2e] [--explain] [--device cpu]
 
 The port of the JAX package's root ``bench.py``, by the same method:
 
@@ -29,9 +29,11 @@ The port of the JAX package's root ``bench.py``, by the same method:
 Prints the per-bucket breakdown as JSON lines on stderr and one JSON
 line on stdout.  ``--e2e`` adds the end-to-end pipeline (bucketed
 iterator, Python collate, :func:`~isubgvqa_tpu_torch.data.prefetch` to
-the card, forward); ``--full`` adds that, the inference rows of the imle,
-aimle and simple samplers and the training step of all four, as the
-root ``bench.py --full`` does.  On a
+the card, forward); ``--explain`` adds explanation extraction end to end
+(:func:`bench_explain`, its rates also in the stdout line); ``--full``
+adds those, the inference rows of the imle, aimle and simple samplers
+and the training step of all four, as the root ``bench.py --full``
+does.  On a
 CUDA device the fused layers run their CUDA kernels; without CUDA the
 bench raises unless ``--device cpu`` asks for the plain PyTorch path.
 """
@@ -411,6 +413,57 @@ def bench_train_step(sampler: str = "gumbel", batch_size: int = 256,
     }
 
 
+def bench_explain(sampler: str = "gumbel", batch_size: int = 2048,
+                  dtype: str = "bfloat16", node_caps=NODE_CAPS,
+                  dev_size: int = 20480, passes: int = 3,
+                  device=None) -> dict:
+    """Explanation extraction end to end (the root ``bench.py``'s
+    ``bench_explain``): the real
+    :func:`~isubgvqa_tpu_torch.explain.run_token_coo_exp` (the bucketed
+    iterator, the Python collate, :func:`prefetch` to the card, the
+    forward with the argmax on the card and the vectorized host metric
+    pass) over a GQA-mix synthetic dev set of ``dev_size`` questions at
+    batch ``batch_size``; questions per second over a pass, the median of
+    ``passes`` passes after a first pass that is discarded.  Each pass
+    draws other noise (seed ``1000 + pass``)."""
+    import contextlib
+    import io
+
+    from .data import build_datasets
+    from .explain import run_token_coo_exp
+
+    dev = resolve_device(device)
+    cfg = dataclasses.replace(
+        _cfg(sampler, batch_size, dtype, node_caps), synthetic=True,
+        synthetic_size=dev_size * 4, synthetic_shape_mix="gqa",
+        eval_batch_factor=1)          # eval batches at the benched size
+    data = build_datasets(cfg)
+    cfg = dataclasses.replace(cfg, num_answers=len(data.answers))
+    model = build_model(cfg, data.vocab, dev)
+    aimle_states = make_aimle_states(cfg, dev)
+    n, times = 0, []
+    for p in range(passes + 1):
+        t0 = _clock()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = run_token_coo_exp(model, data, cfg, split="dev",
+                                    seed=1000 + p, aimle_states=aimle_states)
+        _sync(dev)
+        dt = _clock() - t0
+        n = res.num_samples
+        if p > 0:                    # pass 0: the caches and a warm-up
+            times.append(dt)
+    sec = float(np.median(times))
+    return {
+        "sampler": cfg.sampler_type,
+        "device": _device_name(dev),
+        "batch_size": cfg.batch_size,
+        "explain_qps_per_chip": n / sec,
+        "explain_qps_best": n / float(np.min(times)),
+        "questions": n,
+        "pass_seconds": times,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--full", action="store_true",
@@ -419,6 +472,8 @@ def main(argv=None) -> int:
                          "of all four samplers")
     ap.add_argument("--e2e", action="store_true",
                     help="also the end-to-end pipeline")
+    ap.add_argument("--explain", action="store_true",
+                    help="also explanation extraction end to end")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain PyTorch path)")
@@ -446,6 +501,13 @@ def main(argv=None) -> int:
             print(json.dumps(bench_train_step(
                 setup=for_sampler(tsetup, sampler, train=True))),
                 file=sys.stderr)
+    explain = {}
+    if args.explain or args.full:
+        row = bench_explain(batch_size=args.batch_size,
+                            node_caps=args.node_caps, device=args.device)
+        print(json.dumps(row), file=sys.stderr)
+        explain = {k: row[k] for k in ("explain_qps_per_chip",
+                                       "explain_qps_best")}
     print(json.dumps({
         "metric": "GQA questions/sec/chip (batched inference, ISubGVQA "
                   "forward + discrete subgraph extraction, GQA-realistic "
@@ -454,6 +516,7 @@ def main(argv=None) -> int:
         "unit": "questions/sec/chip",
         "device": head["device"],
         "batch_size": args.batch_size,
+        **explain,
     }))
     return 0
 

@@ -6,8 +6,8 @@ either package loads in the other.  The port keeps its own copy because
 importing the JAX package pulls in jax.
 
 Fields that only steer the TPU build (``kernel_pack``, ``data_axis``,
-``model_axis``, ``donate_state``, ``multistep``) are kept for the JSON
-round trip and ignored here.  ``use_pallas`` keeps its name for the
+``model_axis``, ``donate_state``) are kept for the JSON round trip and
+ignored here.  ``use_pallas`` keeps its name for the
 JSON; in the port it means "run the hand-written CUDA kernels".  On a
 CUDA device the kernels always run, and ``use_pallas=False`` there is
 an error rather than a silent switch to the plain PyTorch path.
@@ -104,7 +104,20 @@ class Config:
     use_pallas: bool = True                 # here: the CUDA kernels
     kernel_pack: Union[int, str, None] = "auto"   # TPU only
     donate_state: bool = True               # TPU only
-    multistep: int = 1                      # TPU only
+    # train steps per group: >1 groups that many same-shape batches
+    # (data/batching.py:group_multistep) and runs their steps one after
+    # another, on the JAX package's batch order; 1 = one step at a time
+    multistep: int = 1
+
+    def scaled(self) -> "Config":
+        """Apply the reference's linear batch / lr scaling
+        (``main.py:54-55``)."""
+        return dataclasses.replace(
+            self,
+            batch_size=self.batch_size * self.scale_factor,
+            lr=self.lr * self.scale_factor,
+            scale_factor=1,
+        )
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)

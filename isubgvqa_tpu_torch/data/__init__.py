@@ -6,8 +6,8 @@ from .tokenizer import build_tokenizer, HashWordTokenizer
 from .scene_graph import SceneGraphStore, GraphArrays, convert_scene_graph
 from .gqa import GQADataset, AnswerMap, Sample, build_text_vocab
 from .batching import (BatchMeta, BucketSpec, Collator, GraphBatch,
-                       iterate_batches, iterate_batches_bucketed, prefetch,
-                       route_to_buckets)
+                       group_multistep, iterate_batches,
+                       iterate_batches_bucketed, prefetch, route_to_buckets)
 from .build import DataBundle, build_bucket_collators, build_datasets
 from .synthetic import SyntheticGQA
 
@@ -15,7 +15,7 @@ __all__ = [
     "SceneGraphVocab", "build_tokenizer", "HashWordTokenizer",
     "SceneGraphStore", "GraphArrays", "convert_scene_graph", "GQADataset",
     "AnswerMap", "Sample", "build_text_vocab", "BatchMeta", "BucketSpec",
-    "Collator", "GraphBatch", "iterate_batches", "iterate_batches_bucketed",
-    "prefetch", "route_to_buckets", "DataBundle", "build_bucket_collators",
-    "build_datasets", "SyntheticGQA",
+    "Collator", "GraphBatch", "group_multistep", "iterate_batches",
+    "iterate_batches_bucketed", "prefetch", "route_to_buckets", "DataBundle",
+    "build_bucket_collators", "build_datasets", "SyntheticGQA",
 ]

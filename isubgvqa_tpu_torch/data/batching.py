@@ -3,7 +3,8 @@
 The port of ``isubgvqa_tpu/data/batching.py``: the same dense layout
 (``[B, N_max, ...]`` nodes, ``[B, E_max, ...]`` edges with per-edge
 within-graph node positions), the same truncation counts and the same
-bucket routing, the same sharded and bucketed iteration, and a
+bucket routing, the same sharded and bucketed iteration, the same
+multistep grouping (:func:`group_multistep`, as lists), and a
 background :func:`prefetch` that copies batches to the card on a side
 stream.  :class:`GraphBatch` is a dataclass of tensors with the JAX
 pytree's field names, dtypes and shapes.  Only the Python fill path is
@@ -285,6 +286,44 @@ def iterate_batches_bucketed(dataset, collators: dict, shuffle: bool = False,
         if shard_index < len(group):
             yield collators[cap].collate(
                 [dataset[t] for t in group[shard_index]])
+
+
+def group_multistep(iterator: Iterator, k: int) -> Iterator:
+    """Group consecutive same-shape ``(batch, meta)`` pairs into groups of
+    ``k`` train steps (the JAX package's ``group_multistep``: the same
+    shape key, the same rule and the same order).
+
+    Yields ``("multi", [batch, ...], metas)`` once ``k`` batches of one
+    shape have accumulated, and at the end of the stream flushes what is
+    left of each shape, in first-seen order, as ``("single", batch,
+    meta)`` items.  Unlike the JAX package the group is a list, not a
+    stacked array: the caller runs its ``k`` steps one after another, on
+    the batch order the JAX package trains on.  ``k <= 1`` yields every
+    pair as a single."""
+    if k <= 1:
+        for batch, meta in iterator:
+            yield ("single", batch, meta)
+        return
+
+    def shape_key(b: GraphBatch):
+        return (tuple(b.node_tokens.shape), tuple(b.edge_src.shape),
+                tuple(b.qst_tokens.shape))
+
+    pending: dict = {}
+    order: list = []                      # flush in first-seen order
+    for batch, meta in iterator:
+        key = shape_key(batch)
+        if key not in pending:
+            pending[key] = []
+            order.append(key)
+        pending[key].append((batch, meta))
+        if len(pending[key]) == k:
+            group = pending.pop(key)
+            order.remove(key)
+            yield ("multi", [b for b, _ in group], tuple(m for _, m in group))
+    for key in order:
+        for batch, meta in pending[key]:
+            yield ("single", batch, meta)
 
 
 def prefetch(iterator: Iterator, depth: int = 2, device=None) -> Iterator:

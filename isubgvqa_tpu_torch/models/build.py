@@ -25,7 +25,7 @@ def resolve_device(device=None) -> torch.device:
 def check_supported(cfg: Config) -> None:
     """The port covers the eval forward and the training step of the
     config of record under each of the four samplers; the other variants
-    are still to port (ROADMAP.md, Queue 1)."""
+    are still to port (ROADMAP.md, Queue 1 item 15)."""
     unsupported = [name for name in (
         "text_sampling", "use_all_instrs", "concat_instr", "use_global_mask",
         "interpretable_mode", "node_classification")
@@ -34,7 +34,8 @@ def check_supported(cfg: Config) -> None:
         unsupported.append("use_instruction/use_topk off")
     if unsupported:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(unsupported)}")
+            f"not ported yet: {', '.join(unsupported)} (ROADMAP.md, "
+            f"Queue 1 item 15: config variants)")
 
 
 def build_model(cfg: Config, vocab, device=None,

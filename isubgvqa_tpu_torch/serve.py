@@ -42,9 +42,11 @@ class Prediction:
     gate: np.ndarray                  # pooling attention per node
 
 
-def batch_seed(seed: int, batch_index: int) -> int:
-    """Seed of batch ``batch_index``'s noise generator."""
-    return int(np.random.SeedSequence([seed, batch_index]).generate_state(1)[0])
+def batch_seed(seed: int, *keys: int) -> int:
+    """Seed of a batch's noise generator, from the run's ``seed`` and the
+    batch's non-negative ``keys`` (its index; the Trainer adds the
+    epoch)."""
+    return int(np.random.SeedSequence([seed, *keys]).generate_state(1)[0])
 
 
 class Predictor:
@@ -84,8 +86,13 @@ class Predictor:
     def from_checkpoint(cls, path: str, cfg: Optional[Config] = None,
                         device=None, **kw) -> "Predictor":
         """Load the port's own ``torch.save`` file
-        (``{"config": json, "state_dict": ...}``, see :meth:`save`), or an
-        upstream ``.pth`` together with ``cfg``."""
+        (``{"config": json, "state_dict": ...}``, see :meth:`save`), one
+        of the Trainer's checkpoints (``checkpoint``,
+        ``checkpoint_lowest_val_loss``, ``checkpoint_top_res``,
+        ``checkpoint{epoch:04d}``; :mod:`.train.checkpoint`), whose payload
+        holds the same two keys, or an upstream ``.pth`` together with
+        ``cfg``.  A ``cfg`` given with the port's file replaces its
+        config (another compute dtype, say)."""
         blob = torch.load(path, map_location="cpu", weights_only=False)
         if isinstance(blob, dict) and "state_dict" in blob:
             cfg = cfg or Config.from_json(blob["config"])

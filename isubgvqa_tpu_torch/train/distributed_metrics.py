@@ -1,0 +1,155 @@
+"""Metric aggregation and rich logging, in one process (the port of
+``isubgvqa_tpu/train/distributed_metrics.py``, the reference's
+``utils/misc.py`` helpers):
+
+* :class:`SmoothedValue`: a windowed meter (``misc.py:22-82``);
+* :func:`reduce_dict`: sum or average a dict of scalars across processes
+  (``misc.py:130-154``);
+* :func:`all_gather_objects`: gather picklable objects
+  (``misc.py:85-127``);
+* :class:`MetricLogger`: an iteration logger with ETA and the device's
+  peak memory (``misc.py:157-262``).
+
+The port runs one process (ROADMAP item 13 adds the cross-process
+sums), so every collective is the identity, as in the JAX package with
+one process.
+"""
+
+from __future__ import annotations
+
+import datetime
+import time
+from collections import defaultdict, deque
+from typing import Dict, Iterable, List
+
+import numpy as np
+import torch
+
+
+class SmoothedValue:
+    """Track a series of values with windowed smoothing
+    (``misc.py:22-82``)."""
+
+    def __init__(self, window_size: int = 20,
+                 fmt: str = "{median:.4f} ({global_avg:.4f})"):
+        self.deque = deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+        self.fmt = fmt
+
+    def update(self, value: float, n: int = 1):
+        self.deque.append(value)
+        self.count += n
+        self.total += value * n
+
+    def synchronize_between_processes(self):
+        """Sum count and total across processes (``misc.py:40-51``): the
+        identity in one process."""
+
+    @property
+    def median(self) -> float:
+        return float(np.median(self.deque)) if self.deque else 0.0
+
+    @property
+    def avg(self) -> float:
+        return float(np.mean(self.deque)) if self.deque else 0.0
+
+    @property
+    def global_avg(self) -> float:
+        return self.total / max(self.count, 1)
+
+    @property
+    def max(self) -> float:
+        return float(np.max(self.deque)) if self.deque else 0.0
+
+    @property
+    def value(self) -> float:
+        return self.deque[-1] if self.deque else 0.0
+
+    def __str__(self):
+        return self.fmt.format(median=self.median, avg=self.avg,
+                               global_avg=self.global_avg, max=self.max,
+                               value=self.value)
+
+
+def reduce_dict(input_dict: Dict[str, float], average: bool = True
+                ) -> Dict[str, float]:
+    """Average (or sum) scalar metrics across processes
+    (``misc.py:130-154``): a copy in one process."""
+    return dict(input_dict)
+
+
+def all_gather_objects(obj) -> List:
+    """Gather picklable objects from all processes
+    (``misc.py:85-127``): ``[obj]`` in one process."""
+    return [obj]
+
+
+def device_memory_stats() -> str:
+    """Peak device memory for the logger line (``misc.py:240-241``):
+    ``torch.cuda.max_memory_allocated()`` where there is a card, else
+    ``n/a``."""
+    if not torch.cuda.is_available():
+        return "n/a"
+    peak = torch.cuda.max_memory_allocated() or torch.cuda.memory_allocated()
+    return f"{peak / (1024 ** 2):.0f}MB"
+
+
+class MetricLogger:
+    """``misc.py:157-262``: named SmoothedValues and ``log_every``.  As in
+    the reference and the JAX package, the training loop uses
+    AverageMeter / ProgressMeter instead."""
+
+    def __init__(self, delimiter: str = "\t"):
+        self.meters: Dict[str, SmoothedValue] = defaultdict(SmoothedValue)
+        self.delimiter = delimiter
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            self.meters[k].update(float(v))
+
+    def __getattr__(self, attr):
+        if attr in self.meters:
+            return self.meters[attr]
+        raise AttributeError(attr)
+
+    def add_meter(self, name: str, meter: SmoothedValue):
+        self.meters[name] = meter
+
+    def synchronize_between_processes(self):
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
+
+    def __str__(self):
+        return self.delimiter.join(
+            f"{name}: {meter}" for name, meter in self.meters.items())
+
+    def log_every(self, iterable: Iterable, print_freq: int,
+                  header: str = ""):
+        i = 0
+        start_time = time.time()
+        end = time.time()
+        iter_time = SmoothedValue(fmt="{avg:.4f}")
+        data_time = SmoothedValue(fmt="{avg:.4f}")
+        try:
+            total = len(iterable)
+        except TypeError:
+            total = None
+        for obj in iterable:
+            data_time.update(time.time() - end)
+            yield obj
+            iter_time.update(time.time() - end)
+            if i % print_freq == 0 or (total and i == total - 1):
+                eta = (iter_time.global_avg * (total - i) if total else 0)
+                eta_str = str(datetime.timedelta(seconds=int(eta)))
+                print(self.delimiter.join([
+                    header, f"[{i}{'/' + str(total) if total else ''}]",
+                    f"eta: {eta_str}", str(self),
+                    f"time: {iter_time}", f"data: {data_time}",
+                    f"mem: {device_memory_stats()}",
+                ]), flush=True)
+            i += 1
+            end = time.time()
+        total_time = time.time() - start_time
+        print(f"{header} Total time: "
+              f"{datetime.timedelta(seconds=int(total_time))}", flush=True)

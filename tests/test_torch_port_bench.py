@@ -304,3 +304,14 @@ def test_cached_weights_survive_inference_mode():
         assert cached(w, "stacked", (bias,), make) is first
         bias.add_(1.0)                      # an update makes it anew
     assert not torch.equal(cached(w, "stacked", (bias,), make), first)
+
+
+def test_bench_explain_on_cpu():
+    """The explain bench over a tiny GQA-mix dev set: every question
+    counted once a pass, the median of the passes after the first."""
+    out = bench.bench_explain(batch_size=4, dev_size=8, node_caps=(32,),
+                              passes=1, device="cpu")
+    assert out["device"] == "cpu" and out["questions"] == 8
+    assert len(out["pass_seconds"]) == 1
+    _finite(out, ("explain_qps_per_chip", "explain_qps_best"))
+    assert out["explain_qps_best"] == pytest.approx(out["explain_qps_per_chip"])
