@@ -109,9 +109,34 @@ script exits non-zero):
     top-1 logit gap beside the largest logit difference); the explain
     bench at B = 2048 (8,192 dev questions) and the device's busy share
     of one profiled explain batch;
+13. config variants: each of ``use_all_instrs``, ``concat_instr``,
+    ``use_global_mask``, ``interpretable_mode``, ``node_classification``,
+    ``use_topk`` off, masks (0.3, 1, 0.5, 0.15), ``text_sampling`` and
+    ``use_instruction`` off, at the full width of the config of record
+    with only its own fields changed (bf16, seeded random weights),
+    serves 256 questions of the GQA-like mix through ``Predictor``; then
+    its eval forward through the kernels against the plain versions on
+    the same questions and noise (f32: logits within 1e-5, node mask and
+    ``mask_text`` identical; bf16: the top-1 agreement); the explainer
+    bypass at stages 0 and 2 likewise; ``concat_instr``,
+    ``interpretable_mode`` and ``text_sampling`` each take one bf16 train
+    step at 256 through ``make_train_step`` and one f32 step kernel
+    against plain (all gradients within 1.4e-4 of their RMS);
+    ``run_token_coo_exp`` explains 8 batches under ``text_sampling``
+    (five metric lines; the commonest of 8 answers lifted so that the
+    text co-occurrence is counted; every sum equal to the per-sample
+    oracle's); the launch counts of these paths (every kernel at least
+    once, each counted from 0 just before its call); last #1 with
+    ``apply_mask_to_h`` and a 600-wide input and #5 forward + backward
+    at a 600-wide input, against their plain versions in f32 and bf16,
+    timed beside their bounds (#5's f32 gradients also against an f64
+    evaluation, with the leaky-ReLU inputs whose sign differs counted),
+    and #1's x_l / x_r product with ``[h | instr]`` built against read as
+    two GEMM segments;
 then the per-kernel JSON line (all eight kernels, with the bench's
-launches, phase 11's and phase 12's among them, beside the main path's)
-and the final ``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
+launches, phase 11's, phase 12's and phase 13's among them, beside the
+main path's, and #1's and #5's times at the variants' shapes) and the
+final ``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
 the serving model is built.
 
 It needs one CUDA device and the CUDA toolkit; without them it exits
@@ -839,11 +864,12 @@ def fwd_bwd(fn, inputs, params, cots):
     return run
 
 
-def compare_grads(name, got, want, dtype):
-    """Worst gradient error by the metric of :data:`TRAIN_GRAD_TOL`."""
+def compare_grads(name, got, want, dtype, tol=None):
+    """Worst gradient error by the metric of :data:`TRAIN_GRAD_TOL` (or
+    ``tol``)."""
     import torch
 
-    tol = TRAIN_GRAD_TOL[str(dtype)[6:]]
+    tol = tol or TRAIN_GRAD_TOL[str(dtype)[6:]]
     rms = lambda t: t.float().square().mean().sqrt().item()
     floor = 1e-2 * max(rms(w) for w in want)
     worst = 0.0
@@ -1307,11 +1333,13 @@ def phase_training(device):
 
 
 def phase_train_step_parity(state, vocab, batch, tag="[9 train step]",
-                            aimle_beta=None):
+                            aimle_beta=None, bf16=True, whole_tol=None):
     """One step's loss and gradients through the kernels and through the
     plain versions, same weights, masks and noise.  With the aimle sampler
     each path starts from its own fresh AIMLE states at ``aimle_beta``,
-    and the states after the backward agree within 1e-6."""
+    and the states after the backward agree within 1e-6.  ``whole_tol``
+    bounds the RMS error of all the gradients together over their RMS;
+    ``bf16=False`` leaves out the bf16 step."""
     import torch
     from isubgvqa_tpu_torch.models import (question_decoder,
                                            question_encoder,
@@ -1352,7 +1380,10 @@ def phase_train_step_parity(state, vocab, batch, tag="[9 train step]",
         finally:
             for (m, n, _), f in zip(sites, saved):
                 setattr(m, n, f)
-        grads = {n: p.grad for n, p in model.named_parameters()}
+        # a parameter that the loss does not reach (the node head) has
+        # no gradient: a zero one, as the optimizer takes it
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in model.named_parameters()}
         norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
         after = [[float(getattr(st, f)) for f in
@@ -1389,6 +1420,17 @@ def phase_train_step_parity(state, vocab, batch, tag="[9 train step]",
     if not worst <= 3e-3:
         raise AssertionError(f"train step f32: {errs[0][1]} differs by "
                              f"{worst} of its RMS")
+    flat = lambda g: torch.cat([t.flatten() for t in g.values()])
+    whole = rms(flat(gk) - flat(gp)) / rms(flat(gp))
+    if whole_tol is not None and not whole <= whole_tol:
+        raise AssertionError(f"train step f32: the gradients differ by "
+                             f"{whole:.3g} of their RMS (> {whole_tol})")
+    if not bf16:
+        log(f"{tag} f32 (TF32 off): loss {lk:.6f} vs plain {lp:.6f}, grad "
+            f"norm {nk:.6f} vs {np_:.6f}, node mask identical, all "
+            f"gradients' RMS error {whole:.3g} of their RMS, worst leaf "
+            f"{worst:.3g} of its RMS ({len(gk)} leaves)")
+        return whole, worst
     l16k, n16k, _, _, _ = run("bfloat16", False)
     l16p, n16p, _, _, _ = run("bfloat16", True)
     # bf16: the two paths round the forward at the same points, but a
@@ -2070,6 +2112,460 @@ def phase_entry_points():
     return counts
 
 
+# Phase 13: the config variants, each at the full width of the config of
+# record with only its own fields changed.
+VARIANTS = {
+    "use_all_instrs": dict(use_all_instrs=True),
+    "concat_instr": dict(concat_instr=True),
+    "use_global_mask": dict(use_global_mask=True),
+    "interpretable_mode": dict(interpretable_mode=True),
+    "node_classification": dict(node_classification=True),
+    "use_topk=0": dict(use_topk=False),
+    "masks (0.3, 1, 0.5, 0.15)": dict(mgat_masks=(0.3, 1.0, 0.5, 0.15)),
+    "text_sampling": dict(text_sampling=True),
+    "use_instruction=0": dict(use_instruction=False),
+}
+TRAIN_VARIANTS = ("concat_instr", "interpretable_mode", "text_sampling")
+VARIANT_QUESTIONS = 256      # served by each variant
+VARIANT_B = 128              # its serving batch
+VARIANT_LOGITS_TOL = 1e-5    # f32 kernel path against plain path
+# run_token_coo_exp under text_sampling: 1024 dev questions over 8
+# answers, the commonest of which every question is given
+EXPLAIN_BATCHES = 8
+EXPLAIN_ANSWERS = 8
+# all of one f32 train step's gradients: RMS error over RMS (phase 7's
+# per-layer bound; each leaf alone keeps phase 9's 3e-3)
+VARIANT_GRAD_TOL = 1.4e-4
+# #5 at ci = 600 in f32, each gradient's RMS error over its RMS against an
+# f64 evaluation of the same formula: the kernel's within phase 7's f32
+# bound; the plain f32 path's, and kernel against plain, within phase
+# 9's per-leaf bound.  A leaky-ReLU input on the other side of 0 from
+# f64's takes the other slope and moves its gradients by O(1) of
+# themselves (one such input of 1.2e7 read 1.9e-4 of the RMS), and some
+# draws gave the plain f32 path several; preact_flips counts them
+VARIANT_CONV_GRAD_TOL = 3e-3
+
+
+def site_noise(cfg, batch, gen):
+    """A standard Gumbel draw for each sampling site of ``cfg`` (gumbel
+    sampler): text sampling ``[1, B, L]``, each masked layer ``[B, N]``."""
+    import torch
+
+    dev = batch.node_mask.device
+    draw = lambda *shape: -torch.log(-torch.log(torch.rand(
+        shape, generator=gen, device=dev).clamp_min(1e-30)))
+    b, n = batch.node_mask.shape
+    noise = {i: draw(b, n) for i, t in enumerate(cfg.mgat_masks)
+             if float(t) != 1.0}
+    if cfg.text_sampling:
+        noise["text"] = draw(1, b, batch.qst_tokens.shape[1])
+    return noise
+
+
+def variant_parity(model, vocab, batches):
+    """The variant's eval forward through the kernels and through the
+    plain versions on ``batches`` with the same noise: f32 (TF32 off)
+    logits within VARIANT_LOGITS_TOL, the node mask and ``mask_text``
+    identical; bf16 top-1 agreement, with the rows whose node mask differs
+    and the disagreements where the plain path's top-1 leads by more than
+    twice the largest logit difference.  Returns ``(f32 logits max abs,
+    node head max abs, bf16 agreeing, real, bf16 rows with another node
+    mask, resolved disagreements)``."""
+    import torch
+    from isubgvqa_tpu_torch.models.build import build_model
+
+    sd = {k: v.float() for k, v in model.state_dict().items()}
+    cfg32 = dataclasses.replace(model.cfg, compute_dtype="float32")
+    dev = batches[0].node_mask.device
+    m32 = build_model(cfg32, vocab, dev, state_dict=sd)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err = head = 0.0
+    agree = real = masks16 = resolved = 0
+    for batch in batches:
+        noise = site_noise(model.cfg, batch, gen)
+        k, p = (forward_path(m32, batch, noise, plain) for plain in (0, 1))
+        err = max(err, (k.logits - p.logits).abs().max().item())
+        if not err <= VARIANT_LOGITS_TOL:
+            raise AssertionError(f"f32 logits differ by {err}")
+        if not torch.equal(k.node_mask.round(), p.node_mask.round()):
+            raise AssertionError("f32 node mask differs")
+        if (k.mask_text is None) != (p.mask_text is None) or (
+                k.mask_text is not None
+                and not torch.equal(k.mask_text.round(), p.mask_text.round())):
+            raise AssertionError("f32 mask_text differs")
+        for a, c in zip(k.node_logits_layers, p.node_logits_layers):
+            head = max(head, (a - c).abs().max().item())
+        k16, p16 = (forward_path(model, batch, noise, plain)
+                    for plain in (0, 1))
+        rows = batch.sample_mask > 0
+        same = k16.logits.argmax(-1) == p16.logits.argmax(-1)
+        agree += int(same[rows].sum())
+        real += int(rows.sum())
+        masks16 += int((k16.node_mask.round() != p16.node_mask.round())
+                       .any(1)[..., 0][rows].sum())
+        top2 = p16.logits.topk(2, dim=-1).values
+        gap = 2 * (k16.logits - p16.logits).abs().max().item()
+        resolved += int((rows & ~same & (top2[:, 0] - top2[:, 1] > gap))
+                        .sum())
+    del m32
+    return err, head, agree, real, masks16, resolved
+
+
+def add_launches(acc, fn, *args, **kw):
+    """``fn(*args, **kw)`` with every launch count set to 0 just before it
+    and read just after; the counts are added to ``acc``."""
+    import torch
+    from isubgvqa_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    for k, v in ops.launch_counts().items():
+        acc[k] = acc.get(k, 0) + v
+    return out
+
+
+def preact_flips(xf, gate, src, dst, em, ea, masters):
+    """#5's leaky-ReLU inputs ``m1 = (x_l[src] + x_r[dst] + eproj) * egate``
+    whose sign differs from an f64 evaluation's, over the valid edges with
+    both gates on, for f32 inputs: ``(kernel's, plain f32 path's, elements
+    counted)``.  The kernel's ``m1`` is formed from its own products (the
+    3xTF32 GEMM of ``csrc/gemm.cu``), summed in its order
+    (``csrc/gat_kernel.cu``), so it equals the edge kernel's."""
+    import torch
+    from isubgvqa_tpu_torch.ops.gemm import gemm, plain_product, product
+
+    b, n, ci = xf.shape
+    e = src.shape[1]
+    w = {k: v.detach() for k, v in masters.items()}
+    xw = xf.detach().reshape(b * n, ci).contiguous()
+    et = ea.detach().reshape(b * e, -1).contiguous()
+    s, d = src.long(), dst.long()
+
+    def m1(x_l, x_r, ep, acc):
+        g = gate.detach().reshape(b, n).to(acc)
+        pick = lambda t, i: torch.gather(
+            t.to(acc).reshape(b, n, -1), 1,
+            i[..., None].expand(-1, -1, t.shape[-1]))
+        eg = (torch.gather(g, 1, s) * torch.gather(g, 1, d))[..., None]
+        return ((pick(x_l, s) + pick(x_r, d))
+                + ep.to(acc).reshape(b, e, -1)) * eg, eg
+
+    def plain(acc):
+        lin = lambda x, k: plain_product(x.to(acc), w[k].to(acc).t())
+        return m1(lin(xw, "wl") + w["bl"].to(acc),
+                  lin(xw, "wr") + w["br"].to(acc), lin(et, "we"), acc)
+
+    with torch.no_grad():
+        f32 = lambda k: w[k].float().contiguous()
+        kern, _ = m1(gemm([(xw, None)], f32("wl"), f32("bl")),
+                     gemm([(xw, None)], f32("wr"), f32("br")),
+                     product([(et, None)], f32("we"), None), torch.float32)
+        ref, eg = plain(torch.float64)
+        valid = em.bool()[..., None] & (eg != 0)
+        flips = lambda t: int((((t >= 0) != (ref >= 0)) & valid).sum())
+        return (flips(kern), flips(plain(torch.float32)[0]),
+                int(valid.sum()) * ref.shape[-1])
+
+
+def variant_kernel_times(model, device):
+    """#1 with ``apply_mask_to_h`` at a 600-wide input as a ``concat_instr``
+    layer runs it (``[h | instr]`` built, then read as one ``xf``), and
+    #5 forward + backward at a 600-wide input, each against its plain
+    version at B = 256, (N, E) = (128, 384), f32 (TF32 off) and bf16,
+    timed (CUDA events, median of 10) beside its bound; and #1's x_l / x_r
+    product alone, ``[h | instr]`` built and read as one ``xf`` against
+    read as two segments of the GEMM (``h``, then the instruction rows
+    gathered by each node's graph: the design #1 does not use), each
+    timed twice in turn.  Returns ``{kernel: [entries]}``."""
+    import torch
+    from isubgvqa_tpu_torch.ops import flops as FL
+    from isubgvqa_tpu_torch.ops import gat_kernel as G
+    from isubgvqa_tpu_torch.ops import gat_train as GT
+    from isubgvqa_tpu_torch.ops.gemm import product
+
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=device).manual_seed(13)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    c, heads, b = model.cfg.general_hidden_dim, model.cfg.gat_heads, GRAPH_B
+    n, e = GRAPH_BUCKETS[-1]
+    nm, em, src, dst = random_graphs(rng, b, n, e, device)
+    nv, ev = int(nm.sum()), int(em.sum())
+    out = {"fused_gat_layer": [], "fused_gatconv": []}
+    gp = model.gat_seq.layer_params(3)        # the masked layer: 2C-wide
+    masters = {k: v.detach().float().clone().requires_grad_(True)
+               for k, v in gp.items() if k in GT.CONV_KEYS}
+    rows = torch.arange(b * n, device=device, dtype=torch.int32)
+    graph_of_row = torch.div(rows, n, rounding_mode="floor")
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        p = ship(gp, dtype)
+        h = rnd(b, n, c).to(dtype)
+        ea = rnd(b, e, c).to(dtype)
+        ins = (0.5 * rnd(b, c)).to(dtype)
+        gate = (torch.rand(b, n, 1, generator=gen, device=device) > 0.6).to(
+            dtype)
+        xf = G.concat_instr_features(h, ins)
+        args = lambda: (h, G.concat_instr_features(h, ins), ins, gate, src,
+                        dst, em, nm, ea, p)
+        fn = lambda: G.fused_gat_layer(*args(), apply_mask_to_h=True)
+        plain = lambda: G.fused_gat_layer_plain(*args(), apply_mask_to_h=True)
+        err, _ = compare("fused_gat_layer concat_instr", fn(), plain(), tol)
+        ms, plain_ms = time_ms(fn), time_ms(plain)
+        b_ms, b_by = bound(
+            FL.gat_layer_flops(nv, ev, c, heads, ci=2 * c,
+                               apply_mask_to_h=True),
+            nbytes(h, ins, gate, src, dst, em, nm, ea, p, h,
+                   torch.empty(b, e, heads)), dtype)
+        shape = (f"B={b} N={n} E={e} apply_mask_to_h, [h | instr] built, "
+                 f"one {2 * c}-wide xf")
+        log(f"[13 variants] fused_gat_layer {shape} {str(dtype)[6:]}: "
+            f"max abs {err:.3g}; {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        out["fused_gat_layer"].append(dict(
+            shape=shape, dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        # the x_l / x_r product alone: [h | instr] built and read as one
+        # xf, against read as two segments
+        w_lr, b_lr = G.stacked_lr(p)
+        one = lambda: product(
+            [(G.concat_instr_features(h, ins).reshape(b * n, -1), None)],
+            w_lr, b_lr, out_dtype=dtype)
+        two = lambda: product([(h.reshape(b * n, c), None),
+                               (ins, graph_of_row)], w_lr, b_lr,
+                              out_dtype=dtype)
+        err, _ = compare("x_l / x_r product, one xf against two segments",
+                         (one(),), (two(),), tol)
+        turns = [(time_ms(one), time_ms(two)) for _ in range(2)]
+        log(f"[13 variants] x_l / x_r product at K = {2 * c} "
+            f"{str(dtype)[6:]}: one xf (the concatenation built) "
+            f"{turns[0][0]:.4f} / {turns[1][0]:.4f} ms, two segments "
+            f"{turns[0][1]:.4f} / {turns[1][1]:.4f} ms (one, two, one, two); "
+            f"max abs {err:.3g} between them")
+        out["fused_gat_layer"].append(dict(
+            shape=f"B={b} N={n} x_l / x_r product at K = {2 * c}",
+            dtype=str(dtype)[6:], one_xf_ms=[t[0] for t in turns],
+            segments_ms=[t[1] for t in turns], max_abs_err=err))
+        inputs = [t.clone().requires_grad_(True) for t in (xf, gate, ea)]
+        wrap = lambda f: (lambda x, g, a, q: f(x, g, src, dst, em, a, q))
+        cots = (rnd(b, n, heads * c), rnd(b, e, heads))
+        run, run_plain = (fwd_bwd(wrap(f), inputs, masters, cots)
+                          for f in (GT.fused_gatconv, GT.fused_gatconv_plain))
+        (o, g), (op, gp_) = run(), run_plain()
+        shape = f"B={b} N={n} E={e} ci={2 * c}"
+        err, _ = compare(f"fused_gatconv {shape}", o, op, tol)
+        exact, extra = "", {}
+        if dtype == torch.float32:
+            # the same formula in f64 (the plain version, unrounded)
+            f64 = lambda ts: [t.detach().double().requires_grad_(True)
+                              for t in ts]
+            _, g64 = fwd_bwd(wrap(GT.fused_gatconv_plain), f64(inputs),
+                             dict(zip(masters, f64(masters.values()))),
+                             [t.double() for t in cots])()
+            k64 = compare_grads(f"fused_gatconv {shape} kernel vs f64", g,
+                                g64, dtype)
+            p64 = compare_grads(f"fused_gatconv {shape} plain vs f64", gp_,
+                                g64, dtype, VARIANT_CONV_GRAD_TOL)
+            kf, pf, total = preact_flips(xf, gate, src, dst, em, ea, masters)
+            exact = (f" (against the f64 evaluation: kernel {k64:.3g}, "
+                     f"plain {p64:.3g}; leaky-ReLU inputs on the other side "
+                     f"of 0 from f64's: kernel {kf}, plain {pf} of {total})")
+            extra = dict(grad_err_vs_f64={"kernel": k64, "plain": p64},
+                         preact_sign_flips={"kernel": kf, "plain": pf,
+                                            "of": total})
+        gerr = compare_grads(f"fused_gatconv {shape}", g, gp_, dtype,
+                             VARIANT_CONV_GRAD_TOL
+                             if dtype == torch.float32 else None)
+        ms, plain_ms = time_ms(run), time_ms(run_plain)
+        b_ms, b_by = bound(FL.gatconv_train_flops(nv, ev, c, heads, ci=2 * c),
+                           nbytes(inputs, masters, o, g), dtype)
+        log(f"[13 variants] fused_gatconv {shape} {str(dtype)[6:]}: out max "
+            f"abs {err:.3g}, gradients RMS error of RMS <= {gerr:.3g}{exact}"
+            f"; fwd+bwd {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        out["fused_gatconv"].append(dict(
+            shape=shape, dtype=str(dtype)[6:], max_abs_err=err,
+            grad_err=gerr, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, **extra))
+        del run, run_plain, o, g, op, gp_, inputs
+    return out
+
+
+def phase_variants(dev):
+    """Phase 13: the config variants at full width on the card.  Each
+    variant (bf16, seeded random weights) serves VARIANT_QUESTIONS
+    questions of the GQA-like mix through ``Predictor``, then its eval
+    forward runs through the kernels and through the plain versions on
+    the same questions and noise (f32 logits within VARIANT_LOGITS_TOL,
+    masks identical; bf16 top-1 agreement); the explainer bypass at
+    stages 0 and 2 likewise.  ``concat_instr``, ``interpretable_mode``
+    and ``text_sampling`` each take one train step at 256 through
+    ``make_train_step`` and one f32 step kernel against plain;
+    ``run_token_coo_exp`` explains EXPLAIN_BATCHES batches under
+    ``text_sampling`` and counts the text co-occurrence.
+    Then #1 and #5 at the variants' shapes, timed.  Returns ``(launch
+    counts of the variants' paths, timed entries)``."""
+    import torch
+    from isubgvqa_tpu_torch import ops
+    from isubgvqa_tpu_torch.data import (AnswerMap, SceneGraphVocab,
+                                         SyntheticGQA, build_bucket_collators,
+                                         build_datasets, build_tokenizer,
+                                         iterate_batches_bucketed)
+    from isubgvqa_tpu_torch.explain import run_token_coo_exp
+    from isubgvqa_tpu_torch.models.build import build_model
+    from isubgvqa_tpu_torch.serve import Predictor
+    from isubgvqa_tpu_torch.train import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    base = serving_config()
+    vocab = SceneGraphVocab.build("", seed=base.seed)
+    answers = AnswerMap.build("", base.num_answers)
+    base = dataclasses.replace(base, num_answers=len(answers))
+    ds = SyntheticGQA(vocab, answers, size=VARIANT_QUESTIONS, seed=2,
+                      shape_mix="gqa")
+    questions = [ds.samples[i][2] for i in range(len(ds))]
+    graphs = [ds.store.scene_graphs[ds.samples[i][1]] for i in range(len(ds))]
+    counts = {}
+    for name, over in VARIANTS.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(base, **over)
+        pred = Predictor(cfg, vocab, answers, device=dev)
+        res = add_launches(counts, pred.predict, questions, graphs,
+                      batch_size=VARIANT_B, seed=0)
+        torch.cuda.synchronize()
+        if len(res) != len(questions) or not all(
+                np.isfinite(r.confidence) for r in res):
+            raise AssertionError(f"{name}: serving returned {len(res)} "
+                                 f"answers or a non-finite one")
+        colls = build_bucket_collators(cfg, pred.tokenizer, vocab,
+                                       batch_size=VARIANT_B)
+        batches = [bt.to(dev) for bt, _ in iterate_batches_bucketed(ds,
+                                                                    colls)]
+        err, head, agree, real, masks16, resolved = variant_parity(
+            pred.model, vocab, batches)
+        kept = np.mean([len(r.subgraph_nodes) for r in res])
+        log(f"[13 variants] {name}: {len(res)} answers over {len(batches)} "
+            f"batches, {kept:.2f} nodes kept a question; f32 logits max abs "
+            f"{err:.3g} (bound {VARIANT_LOGITS_TOL})"
+            + (f", node head max abs {head:.3g}" if cfg.node_classification
+               else "") + ", node mask"
+            + (" and mask_text" if cfg.text_sampling else "")
+            + f" identical; bf16 top-1 agreement {agree}/{real} ("
+            f"{masks16} rows with another node mask, {resolved} "
+            f"disagreements where the plain top-1 leads by more than twice "
+            f"the logit difference) ({time.perf_counter() - t0:.1f} s)")
+        del pred, batches
+    # the explainer bypass on the config of record: stage 0 feeds the
+    # token sum (the plain forward's logits), stage 2 GAT layer 1's input
+    m32 = build_model(dataclasses.replace(base, compute_dtype="float32"),
+                      vocab, dev)
+    coll = build_bucket_collators(
+        base, build_tokenizer(None, max_len=base.question_len,
+                              vocab_size=base.text_vocab_size),
+        vocab, batch_size=VARIANT_B)
+    batch = next(iterate_batches_bucketed(
+        [ds[i] for i in range(VARIANT_B)], coll))[0].to(dev)
+    noise = site_noise(base, batch, torch.Generator(device=dev).manual_seed(5))
+    emb = m32.scene_graph_encoder.sg_vocab_embedding.weight
+    b, n = batch.node_mask.shape
+    for stage, x in ((0, emb[batch.node_tokens.long()].sum(-2)),
+                     (2, torch.randn(b, n, base.general_hidden_dim,
+                                 device=dev))):
+        kw = dict(explainer=True, explainer_stage=stage, expl_bypass_x=x)
+        with torch.no_grad():
+            k = add_launches(counts, m32, batch, noise=noise, **kw)
+            with eval_layers(True):
+                p = m32(batch, noise=noise, **kw)
+            want = m32(batch, noise=noise).logits if stage == 0 else p
+        err = max((k - p).abs().max().item(), (k - want).abs().max().item())
+        if not (isinstance(k, torch.Tensor) and err <= VARIANT_LOGITS_TOL):
+            raise AssertionError(f"explainer stage {stage}: {err}")
+        log(f"[13 variants] explainer stage {stage}: bare logits "
+            f"{tuple(k.shape)}, kernel against plain"
+            + (" and against the forward without the bypass" if stage == 0
+               else "") + f" max abs {err:.3g}")
+    del m32
+    # the train step of three variants at 256
+    _, tbatches = training_batches(dataclasses.replace(
+        train_config(), num_answers=len(answers)), vocab, answers, 1)
+    tbatch = tbatches[0][1].to(dev)
+    for name in TRAIN_VARIANTS:
+        cfg = dataclasses.replace(train_config(), num_answers=len(answers),
+                                  **VARIANTS[name])
+        state = create_train_state(cfg, vocab, steps_per_epoch=8, device=dev)
+        step = make_train_step(state.model, state.optimizer, cfg)
+        state, m = add_launches(counts, step, state, tbatch)
+        loss = float(m["loss_sum"] / m["count"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"{name}: train step loss {loss}")
+        log(f"[13 variants] {name}: train step at {TRAIN_B}, bf16: loss "
+            f"{loss:.5f}, grad norm {float(m['grad_norm']):.5f}")
+        phase_train_step_parity(state, vocab, tbatch,
+                                tag=f"[13 variants] {name} train step",
+                                bf16=False, whole_tol=VARIANT_GRAD_TOL)
+        del state, step
+    torch.cuda.empty_cache()
+    # explanation under text_sampling
+    ecfg = dataclasses.replace(
+        base, text_sampling=True, synthetic=True, synthetic_size=4096,
+        synthetic_shape_mix="gqa", eval_batch_factor=1, batch_size=VARIANT_B,
+        num_answers=EXPLAIN_ANSWERS)
+    data = build_datasets(ecfg)
+    ecfg = dataclasses.replace(ecfg, num_answers=len(data.answers))
+    model = build_model(ecfg, data.vocab, dev)
+    # the text co-occurrence is counted over right answers whose explained
+    # words match a node label: lift the commonest dev answer's logit so
+    # that every question gets it (random weights answer nothing right;
+    # with EXPLAIN_ANSWERS answers it is right for about one in seven),
+    # and decode the hash tokenizer's ids (it has no inverse) by a table
+    # of the dev questions' words
+    dev_set = data.datasets["dev"]
+    common = int(np.bincount([dev_set[i].label
+                              for i in range(len(dev_set))]).argmax())
+    with torch.no_grad():
+        model.logit_fc.bias[common] += 100.0
+    tok = data.tokenizer
+    table = {tok._token_id(w): w for s in dev_set.samples
+             for w in tok.tokenize(s[2])}
+    tok.decode_token = lambda i: table.get(i, f"<tok{i}>")
+    res, text = captured(lambda: add_launches(
+        counts, run_token_coo_exp, model, data, ecfg, split="dev",
+        max_batches=EXPLAIN_BATCHES))
+    lines = [ln.split(":")[0] for ln in text.strip().splitlines()[-5:]]
+    if lines != ["Accuracy", "Accuracy AT", "Ans. Tok. Coo", "Qst. Tok. Coo",
+                 "Qst. Text Tok. Coo"] or res.num_samples <= 0:
+        raise AssertionError(f"run_token_coo_exp printed {lines}")
+    if not (res.sums["text_n"] > 0 and np.isfinite(res.text_token_coo)):
+        raise AssertionError(f"text co-occurrence not counted: text_n "
+                             f"{res.sums['text_n']}, Qst. Text Tok. Coo "
+                             f"{res.text_token_coo}")
+    oracle, _ = captured(lambda: run_token_coo_exp(
+        model, data, ecfg, split="dev", max_batches=EXPLAIN_BATCHES,
+        fast_metrics=False))
+    off = {k: (v, oracle.sums[k]) for k, v in res.sums.items()
+           if not abs(v - oracle.sums[k]) <= 1e-9}
+    if off:
+        raise AssertionError(f"run_token_coo_exp's pass against its "
+                             f"per-sample oracle: {off}")
+    log(f"[13 variants] run_token_coo_exp, text_sampling: "
+        f"{res.num_samples} questions, {int(res.sums['acc_sum'])} right; "
+        f"text explanations counted in {int(res.sums['text_n'])}, Qst. Text "
+        f"Tok. Coo {res.text_token_coo:.6g}; every sum equal to the "
+        f"per-sample oracle's")
+    del model, data
+    torch.cuda.empty_cache()
+    missing = [k for k in ops.launch_counts() if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"phase 13 never launched {missing}: {counts}")
+    log(f"[13 variants] launches of the variants' paths: {json.dumps(counts)}")
+    times = variant_kernel_times(build_model(
+        dataclasses.replace(base, compute_dtype="float32", concat_instr=True),
+        vocab, dev), dev)
+    log(f"[13 variants] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, times
+
+
 def main() -> int:
     import torch
 
@@ -2104,6 +2600,9 @@ def main() -> int:
     bench_counts.update(phase_samplers(gumbel_train_syncs))
     torch.cuda.empty_cache()
     bench_counts["entry_points"] = phase_entry_points()
+    torch.cuda.empty_cache()
+    bench_counts["variants"], variant_times = phase_variants(
+        torch.device("cuda"))
     line = []
     for k, (src, replaces) in KERNELS.items():
         r = entries[(k, torch.bfloat16)]
@@ -2145,6 +2644,8 @@ def main() -> int:
                        **{f: r.get(f) for f in (
                            "products_ms", "products_tflops",
                            "products_cublas_ms", "products_factor")})
+        if k in variant_times:
+            row["variant_shapes"] = variant_times[k]
         line.append(row)
     log(f"train step median {step_ms:.1f} ms at batch {TRAIN_B}")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -8,10 +8,12 @@ The same flags and defaults map onto :class:`~isubgvqa_tpu_torch.config.Config`,
 the reference's flags that it ignores included; ``--scale_factor``
 scales batch and lr; a resume adopts the checkpoint's config up front
 and ``-e`` restores the model only.  Only ``--device`` differs: it
-defaults to the card, and ``cpu`` runs the plain PyTorch path.  The
-port runs one process: ``--model_parallel`` and ``--num_data_shards``
-above 1 raise (ROADMAP item 13), as do the config variants the port
-does not cover (item 15).
+defaults to the card, and ``cpu`` runs the plain PyTorch path.  Every
+model variant runs (``--text_sampling``, ``--use_all_instrs``,
+``--concat_instr``, ``--use_global_mask``, ``--interpretable_mode``,
+``--node_classification``, ``--use_instruction 0``, ``--use_topk 0``).
+The port runs one process: ``--model_parallel`` and ``--num_data_shards``
+above 1 raise (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import os
 import pathlib
 
 from .config import Config
-from .models.build import check_supported
 
 
 def get_argparser() -> argparse.ArgumentParser:
@@ -144,13 +145,12 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 def check_cli_supported(cfg: Config) -> None:
     """Raise on what the port does not run yet: more than one process
-    (ROADMAP item 13) and the config variants (item 15)."""
+    (ROADMAP item 13)."""
     if cfg.model_parallel > 1 or (cfg.num_data_shards or 1) > 1:
         raise NotImplementedError(
             f"model_parallel={cfg.model_parallel}, num_data_shards="
             f"{cfg.num_data_shards}: the port runs one process (ROADMAP.md, "
             f"Queue 1 item 13: DDP)")
-    check_supported(cfg)
 
 
 def main(argv=None):

@@ -3,7 +3,11 @@
 :func:`state_dict_from_jax` turns the JAX package's flax trees (as
 numpy arrays) into a port ``state_dict`` under the upstream repo's
 names: the inverse of ``isubgvqa_tpu/convert.py:convert_state_dict``,
-written here so the port never imports the JAX package.  Layouts:
+written here so the port never imports the JAX package.
+:func:`state_dict_to_jax` goes the other way, for every model variant:
+the text-sampling MLPs, the node head, the 2C-wide ``lin_l`` / ``lin_r``
+and mask head of ``concat_instr`` and the ``use_all_instrs`` mask head
+without ``ques_nn`` (which the JAX converter does not cover).  Layouts:
 
 * flax Dense kernels ``[in, out]`` become torch Linear weights
   ``[out, in]``;
@@ -132,9 +136,9 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
         sd[f"{pre}.lin_edge.weight"] = _t(lin_edge[:, i * width:(i + 1) * width])
         sd[f"{pre}.att"] = _a(c["att"])[None]
         sd[f"{pre}.bias"] = _a(c["bias"])
-        if "mask" in c:
-            _lin(sd, f"{pre}.mask.node_nn.0", c["mask"]["node_nn"]["lin0"])
-            _lin(sd, f"{pre}.mask.ques_nn.0", c["mask"]["ques_nn"]["lin0"])
+        for part in ("node_nn", "ques_nn"):     # no ques_nn: use_all_instrs
+            if part in c.get("mask", {}):
+                _lin(sd, f"{pre}.mask.{part}.0", c["mask"][part]["lin0"])
         for j, idx in ((1, 0), (2, 2)):
             sd[f"gat_seq.x_proj.{i}.{idx}.weight"] = _t(c[f"x_proj_w{j}"])
             sd[f"gat_seq.x_proj.{i}.{idx}.bias"] = _a(c[f"x_proj_b{j}"])
@@ -150,12 +154,152 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
     _lin(sd, "instr_reduction.0", params["instr_reduction"]["lin0"])
     _lin(sd, "embedding.0", params["embedding"])
     _lin(sd, "logit_fc", params["logit_fc"])
+    if "node_logits" in gat:                     # node_classification
+        _lin(sd, "gat_seq.node_logits.0", gat["node_logits"]["lin0"])
+        _lin(sd, "gat_seq.node_logits.2", gat["node_logits"]["lin1"])
+    for name in ("qsts_att_keys", "qsts_att_query"):    # text_sampling
+        if name in params:
+            _lin(sd, f"{name}.0", params[name]["lin0"])
     return sd
 
 
-# upstream modules that its forward never uses (see the JAX converter)
-_UNUSED = ("gate_nn", "emb_proj", "pos_encoder", "node_logits",
-           "num_batches_tracked")
+def _np(t) -> np.ndarray:
+    return np.asarray(t.detach().float().cpu().numpy() if isinstance(
+        t, torch.Tensor) else t, np.float32)
+
+
+def _dense(sd: Mapping, prefix: str) -> dict:
+    return {"kernel": _np(sd[f"{prefix}.weight"]).T.copy(),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _count(sd: Mapping, prefix: str) -> int:
+    """How many ``<prefix><i>.`` blocks ``sd`` holds."""
+    idx = {int(k[len(prefix):].split(".")[0]) for k in sd
+           if k.startswith(prefix)}
+    return max(idx) + 1 if idx else 0
+
+
+def state_dict_to_jax(sd: Mapping) -> tuple:
+    """A port ``state_dict`` -> the JAX package's ``(params,
+    batch_stats)`` trees as numpy f32 arrays, of the structure that its
+    ``init_model`` makes for the same config (every variant); the layer
+    counts come from the keys.  The inverse of :func:`state_dict_from_jax`."""
+    def ln(prefix):
+        return {"scale": _np(sd[f"{prefix}.weight"]),
+                "bias": _np(sd[f"{prefix}.bias"])}
+
+    def attn(prefix):
+        w, b = _np(sd[f"{prefix}.in_proj_weight"]), _np(
+            sd[f"{prefix}.in_proj_bias"])
+        d = w.shape[1]
+        out = {k: {"kernel": w[i * d:(i + 1) * d].T.copy(),
+                   "bias": b[i * d:(i + 1) * d]}
+               for i, k in enumerate(("q", "k", "v"))}
+        out["out"] = _dense(sd, f"{prefix}.out_proj")
+        return out
+
+    params: Dict = {}
+    stats: Dict = {}
+    qe_pre = "question_encoder.transformer_encoder"
+    qe: Dict = {"text_vocab_embedding": {
+        name: {"embedding": _np(sd[f"text_vocab_embedding.{name}.weight"])}
+        for name in ("token_embedding", "position_embedding")},
+        "final_norm": ln(f"{qe_pre}.norm")}
+    for i in range(_count(sd, f"{qe_pre}.layers.")):
+        pre = f"{qe_pre}.layers.{i}"
+        qe[f"layer{i}"] = {
+            "self_attn": attn(f"{pre}.self_attn"),
+            "ffn1": _dense(sd, f"{pre}.linear1"),
+            "ffn2": _dense(sd, f"{pre}.linear2"),
+            "norm1": ln(f"{pre}.norm1"), "norm2": ln(f"{pre}.norm2")}
+    params["question_encoder"] = qe
+    pd_pre = "program_decoder.coarse_decoder"
+    pd: Dict = {"query_embed": _np(sd["program_decoder.query_embed.weight"]),
+                "final_norm": ln(f"{pd_pre}.norm")}
+    for i in range(_count(sd, f"{pd_pre}.layers.")):
+        pre = f"{pd_pre}.layers.{i}"
+        pd[f"layer{i}"] = {
+            "self_attn": attn(f"{pre}.self_attn"),
+            "cross_attn": attn(f"{pre}.multihead_attn"),
+            "ffn1": _dense(sd, f"{pre}.linear1"),
+            "ffn2": _dense(sd, f"{pre}.linear2"),
+            **{f"norm{j}": ln(f"{pre}.norm{j}") for j in (1, 2, 3)}}
+    params["program_decoder"] = pd
+
+    pre = "scene_graph_encoder"
+    meta = f"{pre}.scene_graph_encoding_layer"
+    sg = {"sg_vocab_embedding": {"embedding": _np(
+              sd[f"{pre}.sg_vocab_embedding.weight"])},
+          "bbox_bn0": ln(f"{pre}.bbox_encoding.0"),
+          "bbox_lin0": _dense(sd, f"{pre}.bbox_encoding.1"),
+          "bbox_bn1": ln(f"{pre}.bbox_encoding.3"),
+          "bbox_lin1": _dense(sd, f"{pre}.bbox_encoding.4"),
+          "reduc_bn": ln(f"{pre}.feat_reduc.0"),
+          "reduc_lin": _dense(sd, f"{pre}.feat_reduc.1")}
+    for mod, name in (("edge_model.edge_mlp", "edge_mlp"),
+                      ("node_model.node_mlp_1", "node_mlp1"),
+                      ("node_model.node_mlp_2", "node_mlp2")):
+        for j, idx in ((1, 0), (2, 2)):
+            d = _dense(sd, f"{meta}.{mod}.{idx}")
+            sg[f"{name}_w{j}"], sg[f"{name}_b{j}"] = d["kernel"], d["bias"]
+    for k, n in (("weight", "gn_weight"), ("bias", "gn_bias"),
+                 ("mean_scale", "gn_mean_scale")):
+        sg[n] = _np(sd[f"{pre}.graph_layer_norm.{k}"])
+    params["scene_graph_encoder"] = sg
+    stats["scene_graph_encoder"] = {
+        name: {"mean": _np(sd[f"{pre}.{mod}.running_mean"]),
+               "var": _np(sd[f"{pre}.{mod}.running_var"])}
+        for name, mod in (("bbox_bn0", "bbox_encoding.0"),
+                          ("bbox_bn1", "bbox_encoding.3"),
+                          ("reduc_bn", "feat_reduc.0"))}
+
+    gat: Dict = {}
+    lin_edges = []
+    for i in range(_count(sd, "gat_seq.convs.")):
+        conv = f"gat_seq.convs.{i}"
+        layer = {"att": _np(sd[f"{conv}.att"])[0],
+                 "bias": _np(sd[f"{conv}.bias"])}
+        for side in ("l", "r"):
+            d = _dense(sd, f"{conv}.lin_{side}")
+            layer[f"lin_{side}_kernel"] = d["kernel"]
+            layer[f"lin_{side}_bias"] = d["bias"]
+        for j, idx in ((1, 0), (2, 2)):
+            d = _dense(sd, f"gat_seq.x_proj.{i}.{idx}")
+            layer[f"x_proj_w{j}"], layer[f"x_proj_b{j}"] = (d["kernel"],
+                                                            d["bias"])
+        for k, n in (("weight", "gn_weight"), ("bias", "gn_bias"),
+                     ("mean_scale", "gn_mean_scale")):
+            layer[n] = _np(sd[f"gat_seq.bns.{i}.{k}"])
+        mask = {part: {"lin0": _dense(sd, f"{conv}.mask.{part}.0")}
+                for part in ("node_nn", "ques_nn")
+                if f"{conv}.mask.{part}.0.weight" in sd}
+        if mask:
+            layer["mask"] = mask
+        gat[f"conv{i}"] = layer
+        lin_edges.append(_np(sd[f"{conv}.lin_edge.weight"]).T)
+    gat["lin_edge_all"] = {"kernel": np.concatenate(lin_edges, axis=1)}
+    if "gat_seq.node_logits.0.weight" in sd:
+        gat["node_logits"] = {"lin0": _dense(sd, "gat_seq.node_logits.0"),
+                              "lin1": _dense(sd, "gat_seq.node_logits.2")}
+    params["gat_seq"] = gat
+
+    pool = "graph_global_attention_pooling"
+    params[pool] = {part: {"lin0": _dense(sd, f"{pool}.{part}.0"),
+                           "lin1": _dense(sd, f"{pool}.{part}.2")}
+                    for part in ("node_nn", "ques_nn")}
+    for name in ("qsts_reduction", "instr_reduction", "qsts_att_keys",
+                 "qsts_att_query"):
+        if f"{name}.0.weight" in sd:
+            params[name] = {"lin0": _dense(sd, f"{name}.0")}
+    params["embedding"] = _dense(sd, "embedding.0")
+    params["logit_fc"] = _dense(sd, "logit_fc")
+    return params, stats
+
+
+# upstream modules that its forward never uses (see the JAX converter);
+# the node head only without node_classification
+_UNUSED = ("gate_nn", "emb_proj", "pos_encoder", "num_batches_tracked")
 
 
 def aimle_states_from_jax(states: Optional[Mapping],
@@ -176,19 +320,27 @@ def aimle_states_from_jax(states: Optional[Mapping],
             for i, st in states.items()}
 
 
-def load_upstream_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:
+def load_upstream_state_dict(sd: Mapping, node_classification: bool = False
+                             ) -> Dict[str, torch.Tensor]:
     """An upstream ``model.state_dict()`` (or the ``{"model": ...}``
     training payload) -> a port ``state_dict``: DDP ``module.`` prefixes
-    stripped, weights the upstream forward never uses dropped, the
-    pretrained CLIP tables accepted under HuggingFace's names too."""
+    stripped, weights the upstream forward never uses dropped (the node
+    head ``gat_seq.node_logits`` unless ``node_classification``), the
+    pretrained CLIP tables accepted under HuggingFace's names too, and
+    the text-sampling MLPs under either upstream spelling
+    (``text_sampling.qsts_att_keys`` or ``qsts_att_keys``, as the JAX
+    converter accepts them, ``convert.py:238-244``)."""
     if "model" in sd and isinstance(sd["model"], Mapping):
         sd = sd["model"]
+    unused = _UNUSED if node_classification else _UNUSED + ("node_logits",)
     out: Dict[str, torch.Tensor] = {}
     for k, v in sd.items():
         k = k[len("module."):] if k.startswith("module.") else k
-        if any(u in k for u in _UNUSED):
+        if any(u in k for u in unused):
             continue
         k = k.replace("text_model.embeddings.", "text_vocab_embedding.")
+        if k.startswith("text_sampling.qsts_att_"):
+            k = k[len("text_sampling."):]
         out[k] = torch.as_tensor(np.asarray(v, np.float32)) \
             if not isinstance(v, torch.Tensor) else v.float()
     return out

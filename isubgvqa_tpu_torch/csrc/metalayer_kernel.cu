@@ -82,6 +82,7 @@ __global__ void graph_norm_kernel(const float* __restrict__ p,
                                   const float* __restrict__ nmask,
                                   const TI* __restrict__ instr,
                                   const TI* __restrict__ h,
+                                  const float* __restrict__ gate,
                                   const float* __restrict__ w,
                                   const float* __restrict__ bias,
                                   const float* __restrict__ ms,
@@ -152,6 +153,7 @@ __global__ void graph_norm_kernel(const float* __restrict__ p,
       const long i = ((long)b * N + n) * C + c;
       float y = (pb[(long)n * C + c] * sdp[n] - shift) * r * mb[n] * w[c] + bias[c];
       if (h) y += to_f(h[i]);
+      if (gate) y *= gate[(long)b * N + n];   // apply_mask_to_h
       out[i] = from_f<TO>(y);
     }
   }
@@ -189,9 +191,11 @@ ISG_API int isg_scatter_mean(const float* m, const int* dst,
 }
 
 // p is f32 [B*N, C]; instr [B, C] and h [B*N, C] share the dtype io_dt;
-// instr and h may be null.
+// gate is f32 [B*N] and multiplies the output after the residual (the GAT
+// layer's apply_mask_to_h); instr, h and gate may be null.
 ISG_API int isg_graph_norm(const float* p, const float* nmask,
-                           const void* instr, const void* h, int io_dt,
+                           const void* instr, const void* h,
+                           const float* gate, int io_dt,
                            const float* w, const float* bias,
                            const float* ms, void* out,
                            int out_dt, int B, int N, int C, float eps,
@@ -202,6 +206,6 @@ ISG_API int isg_graph_norm(const float* p, const float* nmask,
       allow_smem(graph_norm_kernel<TI, TO>, smem);
       graph_norm_kernel<TI, TO><<<B, 256, smem, st>>>(
           p, nmask, static_cast<const TI*>(instr), static_cast<const TI*>(h),
-          w, bias, ms, static_cast<TO*>(out), N, C, eps)));
+          gate, w, bias, ms, static_cast<TO*>(out), N, C, eps)));
   return (int)cudaGetLastError();
 }

@@ -80,6 +80,10 @@ class HashWordTokenizer:
         bucketing to route a sample to the smallest length cap."""
         return len(self.encode(text))
 
+    def decode_token(self, token_id: int) -> str:
+        """A token's text (a hash has no inverse: a placeholder)."""
+        return f"<tok{token_id}>"
+
     def __call__(self, texts: Sequence[str], max_len: Optional[int] = None):
         """Batch encode → (input_ids [B, L], attention_mask [B, L])."""
         if isinstance(texts, str):
@@ -150,6 +154,9 @@ class ClipBPETokenizer(HashWordTokenizer):
         out = " ".join(word)
         self.cache[token] = out
         return out
+
+    def decode_token(self, token_id: int) -> str:
+        return self.decoder.get(token_id, "<unk>").replace("</w>", "")
 
     def _encode(self, text: str) -> list[int]:
         text = re.sub(r"\s+", " ", text.lower().strip())

@@ -12,9 +12,10 @@ arrays, which travel beside the device batch through :func:`prefetch`,
 never copied back from the card.  The vectorized metric pass
 (:func:`_accumulate_fast`) is the default; the per-sample loop stays as
 its oracle and runs when a rendering or mask collection asks for the
-samples one by one.  Text explanations need ``text_sampling``, which the
-port does not run yet (ROADMAP item 15), so their co-occurrence stays
-NaN.
+samples one by one.  Under ``text_sampling`` the text mask ``[B, L]``
+comes back in the same copy, and the question tokens it keeps, decoded by
+the data's tokenizer, give the text-explanation co-occurrence
+(``run_token_coo.py:108-116,262-268``); without it that metric is NaN.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from ..data.build import DataBundle
 from ..serve import batch_seed
 from ..train.distributed_metrics import reduce_dict
 from .token_coo import (compute_ans_token_cooccurrence,
-                        compute_qst_token_cooccurrence)
+                        compute_qst_token_cooccurrence,
+                        compute_text_expl_token_cooccurrence)
 
 logger = logging.getLogger(__name__)
 
@@ -64,12 +66,22 @@ def _question_word_ids(question: str, stoi, cache: dict) -> np.ndarray:
     return got
 
 
+def _text_expl(s, mask_text, qst_ids, qst_valid, tokenizer) -> list:
+    """Sample ``s``'s text explanation: the decoded question tokens that
+    the text mask keeps (``run_token_coo.py:108-116``)."""
+    return [tokenizer.decode_token(int(qst_ids[s, i]))
+            for i in range(qst_ids.shape[1])
+            if qst_valid[s, i] and mask_text[s, i] == 1.0]
+
+
 def _accumulate_fast(acc: dict, *, preds, labels, ids0, valid, sel,
                      num_real, questions, ans_vid, stoi,
-                     word_cache) -> None:
+                     word_cache, mask_text=None, qst_ids=None,
+                     qst_valid=None, tokenizer=None) -> None:
     """One batch's metric sums by numpy id comparisons: equal to the
     per-sample oracle loop's; only correct samples pay a per-sample cost
-    for the question co-occurrence (``run_token_coo.py:145-185``)."""
+    for the question and text co-occurrences
+    (``run_token_coo.py:145-185``)."""
     preds = preds[:num_real]
     labels = labels[:num_real]
     ids0 = ids0[:num_real]
@@ -98,12 +110,25 @@ def _accumulate_fast(acc: dict, *, preds, labels, ids0, valid, sel,
             acc["ans_n"] += 1.0
         # question-token co-occurrence (:13-24)
         wids = _question_word_ids(question, stoi, word_cache)
-        matches = np.isin(wids, ids0[s][valid[s]])
+        node_ids = ids0[s][valid[s]]
+        matches = np.isin(wids, node_ids)
         n_match = int(matches.sum())
         if n_match:
             kept = np.isin(wids, ids0[s][sel[s]])
             acc["qst_sum"] += float(kept.sum()) / n_match
             acc["qst_n"] += 1.0
+        # text-explanation co-occurrence (:27-36)
+        if mask_text is not None:
+            expl_ids = np.asarray(
+                [stoi.get(w, -1) for w in _text_expl(
+                    s, mask_text, qst_ids, qst_valid, tokenizer)],
+                dtype=np.int64)
+            cand = np.isin(expl_ids, node_ids)
+            n_cand = int(cand.sum())
+            if n_cand:
+                kept = np.isin(expl_ids, ids0[s][sel[s]])
+                acc["text_sum"] += float(kept.sum()) / n_cand
+                acc["text_n"] += 1.0
 
 
 @dataclasses.dataclass
@@ -160,6 +185,7 @@ def run_token_coo_exp(
     device = next(model.parameters()).device
     vocab = data.vocab
     label2ans = data.answers.label2ans
+    tokenizer = data.tokenizer
 
     def forward(batch, b_idx):
         gen = torch.Generator(device=device).manual_seed(
@@ -170,11 +196,16 @@ def run_token_coo_exp(
             preds = out.logits.argmax(-1).float()[:, None]
             mask = (out.node_mask[..., 0].float() if out.node_mask is not None
                     else torch.ones(batch.node_mask.shape, device=device))
-            # one copy to the host: the predictions beside the node mask
-            got = torch.cat([preds, mask], dim=1).cpu().numpy()
-        return got[:, 0].astype(np.int64), got[:, 1:]
+            parts = [preds, mask]
+            if out.mask_text is not None:
+                parts.append(out.mask_text.float())
+            # one copy to the host: the predictions beside the masks
+            got = torch.cat(parts, dim=1).cpu().numpy()
+        n = mask.shape[1]
+        return (got[:, 0].astype(np.int64), got[:, 1:1 + n],
+                got[:, 1 + n:] if out.mask_text is not None else None)
 
-    accuracy, accuracy_at, ans_coo, qst_coo = [], [], [], []
+    accuracy, accuracy_at, ans_coo, qst_coo, text_coo = [], [], [], [], []
     n_seen = 0
     # the vectorized metric pass, unless a per-sample artifact (rendering,
     # mask collection) needs the sample loop, which stays the oracle
@@ -203,16 +234,19 @@ def run_token_coo_exp(
         for b_idx, (batch, (meta, host)) in enumerate(stream):
             if max_batches is not None and b_idx >= max_batches:
                 break
-            preds, node_mask = forward(batch, b_idx)
+            preds, node_mask, mask_text = forward(batch, b_idx)
             labels = host.labels.numpy()
             node_valid = host.node_mask.numpy()
             tokens0 = host.node_tokens.numpy()[:, :, 0]
+            qst_ids, qst_valid = host.qst_tokens.numpy(), host.qst_mask.numpy()
             if use_fast:
                 _accumulate_fast(
                     fast_acc, preds=preds, labels=labels, ids0=tokens0,
                     valid=node_valid, sel=(node_mask > 0.0) & node_valid,
                     num_real=meta.num_real, questions=meta.questions,
-                    ans_vid=ans_vid, stoi=vocab.stoi, word_cache=word_cache)
+                    ans_vid=ans_vid, stoi=vocab.stoi, word_cache=word_cache,
+                    mask_text=mask_text, qst_ids=qst_ids,
+                    qst_valid=qst_valid, tokenizer=tokenizer)
                 n_seen += meta.num_real
                 continue
             for s in range(meta.num_real):
@@ -238,6 +272,11 @@ def run_token_coo_exp(
                         question_raw, threshold=0.0))
                     qst_coo.append(compute_qst_token_cooccurrence(
                         mask_s, node_labels, question_raw, threshold=0.0))
+                    if mask_text is not None:
+                        text_coo.append(compute_text_expl_token_cooccurrence(
+                            mask_s, node_labels, _text_expl(
+                                s, mask_text, qst_ids, qst_valid, tokenizer),
+                            question_raw, threshold=0.0))
                 if save_expl and expl_dir is not None:
                     _save_explanation(meta, s, node_labels, mask_s,
                                       question_raw, answer_str, label_gt,
@@ -257,10 +296,10 @@ def run_token_coo_exp(
         sums = {"acc_sum": float(np.sum(accuracy)),
                 "acc_n": float(len(accuracy)),
                 "acc_at_sum": float(np.sum(accuracy_at)),
-                "acc_at_n": float(len(accuracy_at)),
-                "text_sum": 0.0, "text_n": 0.0}
+                "acc_at_n": float(len(accuracy_at))}
         sums["ans_sum"], sums["ans_n"] = nan_sums(ans_coo)
         sums["qst_sum"], sums["qst_n"] = nan_sums(qst_coo)
+        sums["text_sum"], sums["text_n"] = nan_sums(text_coo)
     sums["n_seen"] = float(n_seen)
     totals = reduce_dict(sums, average=False)
 

@@ -22,20 +22,18 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def check_supported(cfg: Config) -> None:
-    """The port covers the eval forward and the training step of the
-    config of record under each of the four samplers; the other variants
-    are still to port (ROADMAP.md, Queue 1 item 15)."""
-    unsupported = [name for name in (
-        "text_sampling", "use_all_instrs", "concat_instr", "use_global_mask",
-        "interpretable_mode", "node_classification")
-        if getattr(cfg, name)]
-    if not (cfg.use_instruction and cfg.use_topk):
-        unsupported.append("use_instruction/use_topk off")
-    if unsupported:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(unsupported)} (ROADMAP.md, "
-            f"Queue 1 item 15: config variants)")
+def check_supported(cfg: Config, device=None) -> None:
+    """The port runs the eval forward and the training step under each
+    of the four samplers and every model variant of the JAX package
+    (``text_sampling``, ``use_all_instrs``, ``concat_instr``,
+    ``use_global_mask``, ``interpretable_mode``, ``node_classification``,
+    ``use_instruction`` or ``use_topk`` off, any masked layers).  On a
+    CUDA device the kernels always run: ``use_pallas=False`` there is an
+    error."""
+    if device is not None and torch.device(device).type == "cuda" \
+            and not cfg.use_pallas:
+        raise ValueError("use_pallas=False: on a CUDA device the port "
+                         "always runs its CUDA kernels")
 
 
 def build_model(cfg: Config, vocab, device=None,
@@ -49,8 +47,8 @@ def build_model(cfg: Config, vocab, device=None,
     package.  An eval model (the default) ships its weight matrices at
     the compute dtype and needs no gradients; with ``train`` the
     parameters stay f32 masters with ``requires_grad``."""
-    check_supported(cfg)
     dev = resolve_device(device)
+    check_supported(cfg, dev)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed if seed is None else seed)
         model = ISubGVQA(cfg, sg_vocab_size=len(vocab),

@@ -3,12 +3,17 @@
 gate = GELU(node_nn(x) . ques_nn(u) / sqrt(d)), scored node by node
 against **its own** graph's question vector (the JAX package's
 documented deviation from the reference's ``ques_nn(u)[batch]`` double
-index, ``masking.py:22-33``); then the dense scores with zero-filled
+index, ``masking.py:22-33``); with ``use_all_instrs`` instead each
+instruction's softmax over the graph's node slots (padding slots as zero
+vectors), summed over the instructions (``masking.py:111-117``), and no
+``ques_nn``.  Then, with ``use_topk``, the dense scores with zero-filled
 padding slots (which compete in the top-k, as ``to_dense_batch``'s fill
-does in the reference) go through the configured sampler.  In training
-the gate first gets dropout 0.2 (``masking.py:128``), drawn from the
-step's generator before the sampler's noise, and the sampler runs its
-train branch.
+does in the reference) go through the configured sampler; without it the
+gate goes through a sigmoid and a hard ``> 0.5`` with no gradient
+(``masking.py:149-153``), padding slots included.  In training the gate
+first gets dropout 0.2 (``masking.py:128``), drawn from the step's
+generator before the sampler's noise, and the sampler runs its train
+branch.
 
 The samplers' train and eval configs are the JAX package's
 (``masking.py:74-94``): Gumbel(0, 0.3) noise for imle and aimle at
@@ -65,10 +70,13 @@ class MaskingModel(nn.Module):
     def __init__(self, dim_nodes: int, dim_questions: int, sample_k: int,
                  dropout: float = 0.2, sampler_type: str = "gumbel",
                  nb_samples: int = 1, alpha: float = 1.0, beta: float = 10.0,
-                 tau: float = 1.0):
+                 tau: float = 1.0, use_topk: bool = True,
+                 use_all_instrs: bool = False):
         super().__init__()
         self.node_nn = mlp(dim_nodes, dim_questions)
-        self.ques_nn = mlp(dim_questions, dim_questions)
+        self.ques_nn = (None if use_all_instrs
+                        else mlp(dim_questions, dim_questions))
+        self.use_topk = use_topk
         self.sampler_type = sampler_type
         self.train_cfg, self.eval_cfg = sampler_configs(
             sampler_type, sample_k, nb_samples, alpha, beta, tau)
@@ -96,15 +104,27 @@ class MaskingModel(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
                 dtype: Optional[torch.dtype] = None, train: bool = False,
-                aimle_state: Optional[AIMLEState] = None):
-        """``x [B, N, C]``, ``u [B, C]`` -> gate ``[B, N, 1]``."""
+                aimle_state: Optional[AIMLEState] = None,
+                all_instrs: Optional[torch.Tensor] = None):
+        """``x [B, N, C_in]``, ``u [B, C]`` (``all_instrs [B, T, C]`` with
+        ``use_all_instrs``) -> gate ``[B, N, 1]``."""
         xq = self.node_nn(x, dtype)
-        uq = self.ques_nn(u, dtype)
-        gate = torch.einsum("bnd,bd->bn", xq.float(), uq.float())
-        gate = F.gelu((gate / math.sqrt(xq.shape[-1])).to(xq.dtype))
+        if self.ques_nn is None:
+            xq_m = torch.where(node_mask[..., None], xq.float(),
+                               torch.zeros((), device=xq.device))
+            scores = torch.einsum("bmd,bnd->bmn", all_instrs.float(), xq_m)
+            gate = torch.softmax(scores, dim=2).sum(1).to(xq.dtype)
+        else:
+            uq = self.ques_nn(u, dtype)
+            gate = torch.einsum("bnd,bd->bn", xq.float(), uq.float())
+            gate = F.gelu((gate / math.sqrt(xq.shape[-1])).to(xq.dtype))
         if train and self.dropout > 0.0:
             gate = gate * keep_mask(gate.shape, self.dropout, generator,
                                     gate.device).to(gate.dtype)
+        if not self.use_topk:
+            # hard threshold, no gradient (masking.py:149-153)
+            hard = torch.sigmoid(gate.detach()) > 0.5
+            return hard.to(gate.dtype)[..., None]
         dense = torch.where(node_mask, gate.float(),
                             torch.zeros((), device=gate.device))
         out = self.sample(dense, train, generator, noise, aimle_state)

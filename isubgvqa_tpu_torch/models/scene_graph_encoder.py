@@ -75,11 +75,18 @@ class SceneGraphEncoder(nn.Module):
         }
 
     def forward(self, batch: GraphBatch, dtype: torch.dtype,
-                train: bool = False):
-        """-> (x_encoded [B, N, 300], edge_attr_encoded [B, E, 300])."""
+                train: bool = False,
+                expl_x_embed_sum: Optional[torch.Tensor] = None):
+        """-> (x_encoded [B, N, 300], edge_attr_encoded [B, E, 300]).
+        ``expl_x_embed_sum [B, N, 300]`` (the explainer's stage-0 bypass,
+        ``scene_graph_encoder.py:72-100``) replaces the token sum; the bbox
+        branch, the reduction and the MetaLayer run on it."""
         emb = self.sg_vocab_embedding.weight
-        tok = F.embedding(batch.node_tokens.long(), emb)      # [B, N, 4, C]
-        x_sum = tok.to(dtype).float().sum(-2).to(dtype)
+        if expl_x_embed_sum is not None:
+            x_sum = expl_x_embed_sum.to(dtype)
+        else:
+            tok = F.embedding(batch.node_tokens.long(), emb)  # [B, N, 4, C]
+            x_sum = tok.to(dtype).float().sum(-2).to(dtype)
         node_mask = batch.node_mask
 
         bb = batch.node_bbox.to(dtype)

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "isg_graph_index": [P, P, P, P, P, I, I, I, P],
     "isg_scatter_mean_bwd": [P, P, P, P, I, I, I, I, P],
     "isg_scatter_rows": [P, P, P, P, P, P, P, I, I, I, I, I, P],
-    "isg_graph_norm": [P, P, P, P, I, P, P, P, P, I, I, I, I, F, P],
+    "isg_graph_norm": [P, P, P, P, P, I, P, P, P, P, I, I, I, I, F, P],
     "isg_graph_norm_bwd": [P, I, P, P, P, P, P, P, I, I, I, F, P],
     "isg_instr_gelu": [P, P, P, I, I, I, I, P],
     "isg_gat_edge": [P, P, I, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,

@@ -46,6 +46,8 @@ compute dtype; :func:`peak_flops` looks one up.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 PEAK_FLOPS = {
@@ -54,6 +56,7 @@ PEAK_FLOPS = {
 }
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes a second
 FFN_DIM = 4 * 512           # the text layers' FFN width (models/isubgvqa.py)
+NODE_CLASSES = 2577         # the node head's width (models/mgat.py)
 _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
@@ -71,17 +74,19 @@ def linear_products(rows: float, k: int, n: int) -> float:
 
 
 def gat_conv_products(nodes: float, edges: float, c: int = 300,
-                      heads: int = 4) -> float:
-    """lin_l and lin_r over the nodes, lin_edge over the edges."""
+                      heads: int = 4, ci: Optional[int] = None) -> float:
+    """lin_l and lin_r over the nodes (input width ``ci``: ``2c`` under
+    ``concat_instr``, else ``c``), lin_edge over the edges."""
     hc = heads * c
-    return 2 * linear_products(nodes, c, hc) + linear_products(edges, c, hc)
+    return (2 * linear_products(nodes, ci or c, hc)
+            + linear_products(edges, c, hc))
 
 
 def gat_layer_products(nodes: float, edges: float, c: int = 300,
-                       heads: int = 4) -> float:
+                       heads: int = 4, ci: Optional[int] = None) -> float:
     """One GAT layer: the conv's products and x_proj's two."""
     hc = heads * c
-    return (gat_conv_products(nodes, edges, c, heads)
+    return (gat_conv_products(nodes, edges, c, heads, ci)
             + linear_products(nodes, hc, hc // 2)
             + linear_products(nodes, hc // 2, c))
 
@@ -126,24 +131,38 @@ def decoder_products(b: float, t: int, l: int, d: int = 512,
 
 def forward_flops(cfg, b: int, n: int, e: int, l: int) -> float:
     """The matrix products of one eval forward of ``b`` questions at the
-    padded shape ``(n, e, l)``: the question encoder and decoder, the
+    padded shape ``(n, e, l)``: the question encoder, text sampling's key
+    and query MLPs and scores (``text_sampling``), the decoder, the
     instruction and language MLPs, the bbox MLP and feature reduction,
-    the MetaLayer, the GAT layers and the mask head of each masked layer,
-    the pooling and the fusion classifier."""
+    the MetaLayer, the GAT layers (``2c``-wide inputs under
+    ``concat_instr``), the mask head of each masked layer, the node head
+    after each layer (``node_classification``), the pooling and the fusion
+    classifier."""
     c, d, t = cfg.general_hidden_dim, cfg.text_emb_dim, cfg.mgat_layers
     rn, re_ = float(b) * n, float(b) * e
+    ci = 2 * c if cfg.concat_instr else c
     fl = cfg.encoder_layers * encoder_products(b, l, d)
+    if cfg.text_sampling:
+        # keys and queries; each position's key against the summed queries
+        fl += 2 * linear_products(b * l, d, d) + 2.0 * b * l * d
     fl += cfg.decoder_layers * decoder_products(b, t, l, d)
     fl += linear_products(b * t, d, c)                   # instr_reduction
     fl += linear_products(b, t * d, c)                   # qsts_reduction
     fl += linear_products(rn, 4, 16) + linear_products(rn, 16, 32)  # bbox
     fl += linear_products(rn, c + 32, c)                 # feat_reduc
     fl += metalayer_products(rn, re_, c)
-    fl += cfg.mgat_layers * gat_layer_products(rn, re_, c, cfg.gat_heads)
+    fl += cfg.mgat_layers * gat_layer_products(rn, re_, c, cfg.gat_heads, ci)
     masked = sum(1 for m in cfg.mgat_masks if float(m) != 1.0)
-    # mask head: node_nn, ques_nn, each node's score against its question
-    fl += masked * (linear_products(rn, c, c) + linear_products(b, c, c)
-                    + 2.0 * rn * c)
+    # mask head: node_nn, then ques_nn and each node's score against its
+    # question, or (use_all_instrs) each instruction's scores
+    fl += masked * linear_products(rn, ci, c)
+    if cfg.use_all_instrs:
+        fl += masked * 2.0 * rn * c * t
+    else:
+        fl += masked * (linear_products(b, c, c) + 2.0 * rn * c)
+    if cfg.node_classification:
+        fl += t * (linear_products(rn, c, 512)
+                   + linear_products(rn, 512, NODE_CLASSES))
     # pooling: node_nn and ques_nn (two layers each), the gate scores
     fl += 2 * linear_products(rn, c, c) + 2 * linear_products(b, c, c)
     fl += 2.0 * rn * c
@@ -167,7 +186,8 @@ def batch_shape(batch):
 # ------------------------------------------------------ fused layers' work
 
 def gat_layer_flops(nodes: int, edges: int, c: int = 300, heads: int = 4,
-                    fuse_instr: bool = False) -> float:
+                    fuse_instr: bool = False, ci: Optional[int] = None,
+                    apply_mask_to_h: bool = False) -> float:
     """FLOPs of one eval GAT layer over ``nodes`` valid nodes and
     ``edges`` valid edges (summed over the batch's graphs): the port's
     copy of ``gat_kernel.fused_gat_layer_flops`` without the TPU's
@@ -176,11 +196,13 @@ def gat_layer_flops(nodes: int, edges: int, c: int = 300, heads: int = 4,
     and the conv scatter as [E, N] matmuls; the block-diagonal att and
     head-expand matmuls; the packed-graph one-hot reduces).  Here a
     gather is an index read, the scatter one add per element, and the
-    logits ``2 * E * H * C``."""
+    logits ``2 * E * H * C``.  ``ci`` is the input's width (``2c`` under
+    ``concat_instr``); ``apply_mask_to_h`` adds the gate's multiply."""
     n, e = float(nodes), float(edges)
     hc = heads * c
     pd = hc // 2
-    fl = gat_layer_products(n, e, c, heads)
+    fl = gat_layer_products(n, e, c, heads, ci)
+    fl += n * c if apply_mask_to_h else 0.0
     fl += 12.0 * n * c if fuse_instr else 0.0      # gelu(h * instr)
     fl += 2 * n * hc                               # x_l, x_r biases
     fl += 2.0 * e * hc + e                         # m = xs + xd + eproj, gate
@@ -195,15 +217,16 @@ def gat_layer_flops(nodes: int, edges: int, c: int = 300, heads: int = 4,
 
 
 def gatconv_train_flops(nodes: int, edges: int, c: int = 300,
-                        heads: int = 4) -> float:
+                        heads: int = 4, ci: Optional[int] = None) -> float:
     """FLOPs of the conv's forward and backward over ``nodes`` valid nodes
     and ``edges`` valid edges (summed over the batch): the port's model of
     ``gat_train.fused_gatconv_{fwd,bwd}_flops`` without the backward's
     recompute and the one-hot / block-diagonal terms (gathers and
-    scatters are index reads and adds; the logits ``2 E H C``)."""
+    scatters are index reads and adds; the logits ``2 E H C``); ``ci``
+    the input's width (``2c`` under ``concat_instr``)."""
     n, e = float(nodes), float(edges)
     hc = heads * c
-    fl = 3 * gat_conv_products(n, e, c, heads)   # forward, dgrads, wgrads
+    fl = 3 * gat_conv_products(n, e, c, heads, ci)  # forward, dgrads, wgrads
     fl += 2 * n * hc                         # x_l, x_r biases
     fl += 2.0 * e * hc + e                   # message, edge gate
     fl += 4.0 * e * hc + 2.0 * e * hc        # gates, leaky relu, logits

@@ -10,10 +10,15 @@ Design on the H100, a fixed sequence of hand-written launches:
 2. the graph-layer GEMM (:func:`.gemm.product`: for bf16
    ``csrc/gemm_gather_sm90.cu``, wgmma fed by cp.async; for f32
    ``csrc/gemm.cu``'s 3xTF32 form): ``x_l`` and ``x_r`` as one product
-   against the stacked ``[2 H*C, C]`` weight and bias (``xf`` read once;
-   each column's sum is unchanged), then the layer's lin_edge projection
-   of the edge features, each rounded to the model dtype as the Pallas
-   kernel rounds them (``:124-140``);
+   against the stacked ``[2 H*C, C_in]`` weight and bias (``xf`` read
+   once; each column's sum is unchanged), then the layer's lin_edge
+   projection of the edge features, each rounded to the model dtype as
+   the Pallas kernel rounds them (``:124-140``).  A ``concat_instr``
+   layer's input is ``xf = [h | instr[graph]]`` (``C_in = 2C``,
+   ``gat_kernel.py:331-333``), built by :func:`concat_instr_features`
+   (read instead as two segments of the GEMM, ``h`` and the instruction
+   rows gathered by each node's graph, the layer was no faster on the
+   H100 in bf16 and slower in f32: ``PERF.md`` section 6);
 3. ``isg_gat_edge``, one block per graph: edge gate, leaky-ReLU message,
    4-head logits, per-destination softmax, ``alpha``, and the
    aggregation ``conv = sum x_l[src] * alpha * egate + bias`` over
@@ -21,7 +26,9 @@ Design on the H100, a fixed sequence of hand-written launches:
    destination);
 4. the same GEMM for ``x_proj`` 1200 -> 600 -> 300, GELU after both;
 5. ``csrc/metalayer_kernel.cu:isg_graph_norm``: the instruction SDP
-   softmax over valid nodes, GraphNorm and the residual.
+   softmax over valid nodes, GraphNorm, the residual and, with
+   ``apply_mask_to_h``, the node gate's multiply after it
+   (``gat_kernel.py:224-225``).
 
 The TPU's graph packing (``gat_kernel.py:278-317``) fed its 128-row MXU
 and is not carried over: one block per graph is natural here.
@@ -53,7 +60,8 @@ NEGATIVE_SLOPE = 0.2        # GATv2's leaky-ReLU
 
 
 def fused_gat_layer_plain(h, xf, instr, gate, src, dst, edge_mask, node_mask,
-                          e_attr, params, fuse_instr: bool = False):
+                          e_attr, params, fuse_instr: bool = False,
+                          apply_mask_to_h: bool = False):
     p = params
     dtype = h.dtype
     b, n, c = h.shape
@@ -97,12 +105,21 @@ def fused_gat_layer_plain(h, xf, instr, gate, src, dst, edge_mask, node_mask,
     q = linear_plain(q, p["w2"], p["b2"], "gelu")
     out = graph_norm_plain(q, node_mask, p["gn_w"], p["gn_b"], p["gn_a"],
                            instr=ins) + hf
+    if apply_mask_to_h:
+        out = out * g
     return out.to(dtype), alpha
 
 
+def concat_instr_features(h, instr):
+    """``[h | instr[graph]]``, ``[B, N, 2C]`` at ``h``'s dtype: the input
+    of a ``concat_instr`` layer (``mgat.py:179-184``)."""
+    ins = instr.to(h.dtype)[:, None, :].expand(h.shape)
+    return torch.cat([h, ins], dim=-1)
+
+
 def stacked_lr(params):
-    """``(weight [2 H*C, C], f32 bias [2 H*C])``: x_l's over x_r's, made
-    once while the four tensors stand (:func:`.gemm.cached`)."""
+    """``(weight [2 H*C, C_in], f32 bias [2 H*C])``: x_l's over x_r's,
+    made once while the four tensors stand (:func:`.gemm.cached`)."""
     wl, wr, bl, br = (params[k] for k in ("wl", "wr", "bl", "br"))
     return cached(wl, "x_lr", (wr, bl, br), lambda: (
         torch.cat([wl, wr]).contiguous(),
@@ -110,21 +127,25 @@ def stacked_lr(params):
 
 
 def fused_gat_layer(h, xf, instr, gate, src, dst, edge_mask, node_mask,
-                    e_attr, params, fuse_instr: bool = False):
+                    e_attr, params, fuse_instr: bool = False,
+                    apply_mask_to_h: bool = False):
     """One eval MGAT layer; returns ``(out [B, N, C], alpha [B, E, H])``.
 
-    ``h [B, N, C]`` layer input (residual), ``xf`` the instruction-fused
-    features (ignored with ``fuse_instr``, which computes
-    ``gelu(h * instr)`` itself), ``instr [B, C]``, ``gate [B, N, 1]``
-    (ones on unmasked layers), ``src/dst/edge_mask [B, E]``,
+    ``h [B, N, C]`` layer input (residual), ``xf [B, N, C_in]`` the
+    instruction-fused features (``[h | instr]`` on a ``concat_instr``
+    layer; ignored with ``fuse_instr``, which computes
+    ``gelu(h * instr)`` itself), ``instr [B, C]``,
+    ``gate [B, N, 1]`` (ones on unmasked layers; with ``apply_mask_to_h``
+    it also multiplies the output), ``src/dst/edge_mask [B, E]``,
     ``node_mask [B, N]``, ``e_attr [B, E, C]`` the encoded edges.
-    ``params``: :data:`KEYS` — ``wl/wr/we [H*C, C]``, ``w1 [H*C/2, H*C]``,
-    ``w2 [C, H*C/2]`` as torch Linear weights at the model dtype;
-    ``att [H, C]`` and the vectors f32.
+    ``params``: :data:`KEYS` — ``wl/wr [H*C, C_in]``, ``we [H*C, C]``,
+    ``w1 [H*C/2, H*C]``, ``w2 [C, H*C/2]`` as torch Linear weights at the
+    model dtype; ``att [H, C]`` and the vectors f32.
     """
     if not h.is_cuda:
         return fused_gat_layer_plain(h, xf, instr, gate, src, dst, edge_mask,
-                                     node_mask, e_attr, params, fuse_instr)
+                                     node_mask, e_attr, params, fuse_instr,
+                                     apply_mask_to_h)
     p = params
     b, n, c = h.shape
     e = src.shape[1]
@@ -145,10 +166,11 @@ def fused_gat_layer(h, xf, instr, gate, src, dst, edge_mask, node_mask,
         xft = torch.empty_like(ht)
         _lib.call("isg_instr_gelu", ht.data_ptr(), it.data_ptr(),
                   xft.data_ptr(), _lib.dt(ht), b, n, c)
+        segments = [(xft, None)]
     else:
-        xft = xf.to(dtype).reshape(b * n, c).contiguous()
+        segments = [(xf.to(dtype).reshape(b * n, -1).contiguous(), None)]
     w_lr, b_lr = stacked_lr(p)
-    x_lr = product([(xft, None)], w_lr, b_lr, out_dtype=dtype)
+    x_lr = product(segments, w_lr, b_lr, out_dtype=dtype)
     et = e_attr.to(dtype).reshape(b * e, c).contiguous()
     eproj = product([(et, None)], p["we"], None, out_dtype=dtype)
 
@@ -174,7 +196,8 @@ def fused_gat_layer(h, xf, instr, gate, src, dst, edge_mask, node_mask,
     out = torch.empty((b * n, c), dtype=dtype, device=h.device)
     _lib.check_cuda(p["gn_w"], p["gn_b"], p["gn_a"])
     _lib.call("isg_graph_norm", q.data_ptr(), nm.data_ptr(), it.data_ptr(),
-              ht.data_ptr(), _lib.dt(ht), p["gn_w"].data_ptr(),
+              ht.data_ptr(), g.data_ptr() if apply_mask_to_h else None,
+              _lib.dt(ht), p["gn_w"].data_ptr(),
               p["gn_b"].data_ptr(), p["gn_a"].data_ptr(), out.data_ptr(),
               _lib.dt(out), b, n, c, GN_EPS)
     fused_gat_layer.launches += 1

@@ -64,20 +64,25 @@ def fused_gatconv_plain(xf, gate, src, dst, edge_mask, e_attr, params):
     """``(conv [B, N, H*C] f32, alpha [B, E, H] f32)``; ``xf``, ``gate``
     and ``e_attr`` are used at ``xf.dtype`` (the model dtype), ``wl`` /
     ``wr`` / ``att`` / biases in f32, ``we`` at the model dtype with the
-    projected edges rounded to it (``gat_train.py:_prep`` / ``:95-96``)."""
+    projected edges rounded to it (``gat_train.py:_prep`` / ``:95-96``).
+    An f64 ``xf`` evaluates the same formula in f64 with no rounding at
+    all: the exact reference that ``chip_smoke.py`` holds the kernel and
+    the f32 path against."""
     p = params
     dtype = xf.dtype
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    rnd = (lambda t: t.to(acc)) if acc == torch.float64 else (
+        lambda t: ste(t, dtype))
     b, n, _ = xf.shape
     e = src.shape[1]
     heads, c = p["att"].shape[-2:]
-    att = p["att"].float().reshape(-1)
-    x = ste(xf, dtype)
-    x_l = plain_product(x, p["wl"].float().t()) + p["bl"].float()
-    x_r = plain_product(x, p["wr"].float().t()) + p["br"].float()
-    eproj = ste(plain_product(ste(e_attr, dtype), ste(p["we"], dtype).t()),
-                dtype)
-    em = edge_mask.float()[..., None]
-    egate = dense_node_gate_to_edge_gate(ste(gate, dtype).reshape(b, n),
+    att = p["att"].to(acc).reshape(-1)
+    x = rnd(xf)
+    x_l = plain_product(x, p["wl"].to(acc).t()) + p["bl"].to(acc)
+    x_r = plain_product(x, p["wr"].to(acc).t()) + p["br"].to(acc)
+    eproj = rnd(plain_product(rnd(e_attr), rnd(p["we"]).t()))
+    em = edge_mask.to(acc)[..., None]
+    egate = dense_node_gate_to_edge_gate(rnd(gate).reshape(b, n),
                                          src, dst, edge_mask)[..., None]
     xs = gather_rows(x_l, src, edge_mask)
     m0 = xs + gather_rows(x_r, dst, edge_mask) + eproj
@@ -85,7 +90,7 @@ def fused_gatconv_plain(xf, gate, src, dst, edge_mask, e_attr, params):
     m3 = torch.where(m1 >= 0, m1, m1 * NEGATIVE_SLOPE) * egate
     logits = (m3.reshape(b, e, heads, c) * att.reshape(heads, c)).sum(-1)
     logits = torch.where(em > 0, logits, torch.full_like(logits, NEG))
-    oh_dst = F.one_hot(dst.long(), n).float() * em              # [B, E, N]
+    oh_dst = F.one_hot(dst.long(), n).to(acc) * em              # [B, E, N]
     inc = (oh_dst > 0)[..., None]
     # the per-destination max only shifts the softmax: no gradient
     max_n = torch.where(inc, logits.detach()[:, :, None, :],
@@ -94,7 +99,7 @@ def fused_gatconv_plain(xf, gate, src, dst, edge_mask, e_attr, params):
     denom = oh_dst @ (oh_dst.transpose(1, 2) @ expv)
     alpha = expv / torch.where(denom > 1e-12, denom, torch.ones_like(denom))
     w = (alpha * egate).repeat_interleave(c, dim=-1)            # [B, E, HC]
-    conv = oh_dst.transpose(1, 2) @ (xs * w) + p["cbias"].float()
+    conv = oh_dst.transpose(1, 2) @ (xs * w) + p["cbias"].to(acc)
     return conv, alpha
 
 
@@ -192,10 +197,11 @@ class _GatConv(torch.autograd.Function):
 
 
 def fused_gatconv(xf, gate, src, dst, edge_mask, e_attr, params):
-    """The GATv2 conv for training: ``xf [B, N, C]`` (instruction-fused
-    node features), ``gate [B, N, 1]``, ``src/dst/edge_mask [B, E]``,
-    ``e_attr [B, E, C]`` at the model dtype; ``params`` keyed by
-    :data:`CONV_KEYS` (``wl/wr/we [H*C, C]``, ``att [H, C]``, f32 masters)
+    """The GATv2 conv for training: ``xf [B, N, C_in]`` (instruction-fused
+    node features, ``C_in = 2C`` under ``concat_instr``), ``gate
+    [B, N, 1]``, ``src/dst/edge_mask [B, E]``, ``e_attr [B, E, C]`` at the
+    model dtype; ``params`` keyed by :data:`CONV_KEYS` (``wl/wr
+    [H*C, C_in]``, ``we [H*C, C]``, ``att [H, C]``, f32 masters)
     -> ``(conv [B, N, H*C] f32, alpha [B, E, H] f32)``.  Gradients reach
     ``xf``, ``gate`` (destination nodes only), ``e_attr`` and every
     parameter."""
@@ -210,11 +216,13 @@ fused_gatconv.launches = 0
 fused_gatconv.bwd_launches = 0
 
 
-def gat_head_plain(h, conv, instr, node_mask, params):
+def gat_head_plain(h, conv, instr, node_mask, params, gate=None):
     """Node-space half of the layer in f32 (the port of
     ``gat_kernel.gat_head_reference``): x_proj MLP with GELUs, the
-    instruction SDP softmax over valid nodes, GraphNorm, the residual.
-    Plain differentiable PyTorch; returns ``[B, N, C]`` at ``h.dtype``."""
+    instruction SDP softmax over valid nodes, GraphNorm, the residual
+    and, where ``gate [B, N, 1]`` is given (``apply_mask_to_h``), its
+    multiply.  Plain differentiable PyTorch; returns ``[B, N, C]`` at
+    ``h.dtype``."""
     p = params
     q = F.gelu(conv.float() @ p["w1"].float().t() + p["b1"].float())
     q = F.gelu(q @ p["w2"].float().t() + p["b2"].float())
@@ -231,14 +239,22 @@ def gat_head_plain(h, conv, instr, node_mask, params):
     var = (shifted * shifted * nm).sum(1, keepdim=True) / count
     normed = shifted * torch.rsqrt(var + GN_EPS) * nm
     out = normed * p["gn_w"].float() + p["gn_b"].float() + h.float()
+    if gate is not None:
+        out = out * gate.float()
     return out.to(h.dtype)
 
 
 def fused_gat_layer_train(h, xf, instr, gate, src, dst, edge_mask,
-                          node_mask, e_attr, params):
+                          node_mask, e_attr, params,
+                          apply_mask_to_h: bool = False):
     """One MGAT layer for training: :func:`fused_gatconv` + the plain
-    head.  ``params`` as ``MGAT.layer_params`` (f32 masters).  Returns
+    head.  ``params`` as ``MGAT.layer_params`` (f32 masters); ``xf`` is
+    ``[B, N, 2C]`` on a ``concat_instr`` layer.  With ``apply_mask_to_h``
+    the gate also multiplies the output, so its cotangent is the edge
+    gate's (destination nodes only) plus that multiply's, as in
+    ``jax.grad`` of ``gat_layer_reference``.  Returns
     ``(out [B, N, C], alpha [B, E, H])``."""
     conv, alpha = fused_gatconv(xf, gate, src, dst, edge_mask, e_attr,
                                 {k: params[k] for k in CONV_KEYS})
-    return gat_head_plain(h, conv, instr, node_mask, params), alpha
+    return gat_head_plain(h, conv, instr, node_mask, params,
+                          gate if apply_mask_to_h else None), alpha

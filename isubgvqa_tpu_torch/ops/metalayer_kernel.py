@@ -172,7 +172,7 @@ def metalayer_launch(x, e_attr, src, dst, edge_mask, node_mask, params,
     nm = node_mask.to(torch.float32).contiguous()
     _lib.check_cuda(p["gn_w"], p["gn_b"], p["gn_a"])
     _lib.call("isg_graph_norm", o2.data_ptr(), nm.data_ptr(), None, None,
-              _lib.dt(x), p["gn_w"].data_ptr(), p["gn_b"].data_ptr(),
+              None, _lib.dt(x), p["gn_w"].data_ptr(), p["gn_b"].data_ptr(),
               p["gn_a"].data_ptr(), x_out.data_ptr(), _lib.dt(x_out), b, n,
               c, GN_EPS)
     saved = (dict(xt=xt, et=et, em=em, nm=nm, gsrc=gsrc, gdst=gdst,

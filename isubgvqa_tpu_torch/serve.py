@@ -100,7 +100,7 @@ class Predictor:
         else:
             if cfg is None:
                 raise ValueError("an upstream checkpoint needs a Config")
-            sd = load_upstream_state_dict(blob)
+            sd = load_upstream_state_dict(blob, cfg.node_classification)
         vocab = SceneGraphVocab.build(cfg.meta_dir, glove_path=cfg.glove_path,
                                       seed=cfg.seed)
         answers = AnswerMap.build(cfg.meta_dir, cfg.num_answers)

@@ -123,6 +123,39 @@ def test_cuda_kernels_match_plain_versions(card, dtype):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_gat_variants_match_plain_versions(card, dtype):
+    """#1 with ``apply_mask_to_h`` and a 2C-wide input (``concat_instr``'s
+    ``[h | instr]``); #5's conv forward and backward at a 2C-wide input
+    against autograd of its plain version."""
+    torch.manual_seed(2)
+    rng = np.random.default_rng(13)
+    b, n, e = 3, 16, 48
+    nm, em, src, dst = graphs(rng, b, n, e)
+    h, ea = randn(b, n, C, dtype=dtype), randn(b, e, C, dtype=dtype)
+    ins = randn(b, C, dtype=dtype, scale=0.5)
+    gate = (torch.rand(b, n, 1, device=DEVICE) > 0.4).to(dtype)
+    layer = MGAT(C, 1, HEADS, (0.15,), sample_k=3, concat_instr=True)
+    gp = ship(layer.layer_params(0), dtype)
+    xf = torch.cat([h, ins[:, None].expand(h.shape)], -1)
+    args = (h, xf, ins, gate, src, dst, em, nm, ea, gp)
+    got = ops.fused_gat_layer(*args, apply_mask_to_h=True)
+    check(got, ops.fused_gat_layer_plain(*args, apply_mask_to_h=True), dtype)
+    assert (got[0][gate[..., 0] == 0] == 0).all()
+
+    cp = masters({k: layer.layer_params(0)[k] for k in gat_train.CONV_KEYS})
+    cot = (torch.randn(b, n, HEADS * C, device=DEVICE),
+           torch.randn(b, e, HEADS, device=DEVICE))
+    wrap = lambda f: (lambda x, g, a, p: f(x, g, src, dst, em, a, p))
+    res = run_both(wrap(gat_train.fused_gatconv),
+                   wrap(gat_train.fused_gatconv_plain), (xf, gate, ea),
+                   (0, 1, 2), cp, cot)
+    check_train(res, dtype, ["xf", "gate", "e_attr"])
+    torch.cuda.synchronize()
+
+
 def masters(params):
     """f32 master parameters on the card, as leaves with gradients."""
     return {k: v.detach().float().to(DEVICE).requires_grad_(True)

@@ -208,7 +208,7 @@ def test_mgat_stack_matches_jax(setup, port_intermediates, monkeypatch):
     cfg, vocab, batch, tb, tm, params, stats, noise = setup
     pi = port_intermediates
     with torch.no_grad():
-        h_t, mask_t, alphas_t = tm.gat_seq(
+        h_t, mask_t, alphas_t, _ = tm.gat_seq(
             pi["x_enc"], tb, pi["e_enc"], pi["instr"], pi["lang"],
             noise=torch.from_numpy(noise))
     shared_gumbel(monkeypatch, noise)
