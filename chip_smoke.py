@@ -133,8 +133,22 @@ script exits non-zero):
     evaluation, with the leaky-ReLU inputs whose sign differs counted),
     and #1's x_l / x_r product with ``[h | instr]`` built against read as
     two GEMM segments;
+14. the native collate fill and data parallelism: over the bench's mix
+    (22 x 2048 samples, 8 buckets) every batch of the native C++ fill
+    equals the Python fill's (``ISUBGVQA_NATIVE=0``) bit for bit,
+    truncation counts included, and lies in pinned memory; each fill's
+    rate; ``bench_e2e`` (the median of 3 epochs) with each fill beside
+    ``bench_inference`` in the same run; serving 64 questions with each
+    fill, in turns (wall, the device's busy share); ``cli.main`` trains
+    an epoch of 2,048 questions at 256 without a process group, then that
+    Trainer's epoch with each fill (ms a step, host waits a step) and a
+    train step without and with a one-rank NCCL group, each profiled
+    once; last ``torchrun --standalone --nproc_per_node=1 -m
+    isubgvqa_tpu_torch.cli`` with the same flags (NCCL), whose metric
+    lines and checkpoint equal the run without a group's (bitwise, or
+    within ``DDP_ATOL``), beside a second run without a group;
 then the per-kernel JSON line (all eight kernels, with the bench's
-launches, phase 11's, phase 12's and phase 13's among them, beside the
+launches, phase 11's, 12's, 13's and 14's among them, beside the
 main path's, and #1's and #5's times at the variants' shapes) and the
 final ``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
 the serving model is built.
@@ -2566,6 +2580,397 @@ def phase_variants(dev):
     return counts, times
 
 
+# Phase 14: the native collate fill and data parallelism.
+FILL_BATCHES = 22            # the bench's mix: 22 x 2048 samples, 8 buckets
+DDP_SIZE = 2048              # the CLI runs' train questions: a few steps
+DDP_TIMEOUT = 300            # s, the torchrun job
+# torchrun against no group: a tensor may differ by the f32 rounding of
+# its gradient, which Adam turns into a share of one update (the first
+# epoch's learning rate is 1e-6, so a step moves an element by about
+# 1e-6); the bound is a tenth of that, where a fault (a wrong sum or
+# count) moves whole tensors by updates and the metric lines with them
+DDP_ATOL = 1e-7
+
+
+@contextlib.contextmanager
+def python_fill():
+    """Inside, collators built select the Python fill
+    (``ISUBGVQA_NATIVE=0``)."""
+    saved = os.environ.get("ISUBGVQA_NATIVE")
+    os.environ["ISUBGVQA_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("ISUBGVQA_NATIVE", None)
+        else:
+            os.environ["ISUBGVQA_NATIVE"] = saved
+
+
+def silent(fn, *args):
+    """``fn(*args)`` with its standard output kept and not echoed:
+    ``(result, text)``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def metric_lines(text):
+    """The CLI's metric lines without their times: each epoch line's
+    loss, grad norm and accuracy fields, the validation lines and the
+    best-accuracy lines."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("Epoch: ["):
+            out.append(" ".join(f for f in line.split("\t")
+                                if not f.startswith(("Time", "Data"))))
+        elif line.startswith(("Val epoch", "Top validation")):
+            out.append(line)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def step_ms(step, state, batch, n=6):
+    """Median host ms of ``n`` train steps on one batch, each ended by a
+    synchronize, after one warm-up step."""
+    import torch
+
+    step(state, batch)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(statistics.median(times))
+
+
+def phase_native_ddp(smi):
+    """Phase 14: the native C++ collate fill and data-parallel training.
+    (a) Over the bench's mix (22 x 2048 samples, 8 buckets) every batch
+    of the native fill equals the Python fill's (``ISUBGVQA_NATIVE=0``)
+    bit for bit, the truncation counts too; each fill's rate. (b)
+    ``bench_e2e`` (gumbel, B = 2048, the median of 3 epochs) with each
+    fill beside ``bench_inference``'s device-only rate. (c) Serving 64
+    questions with each fill: wall ms and the device's busy share. (d)
+    ``cli.main`` trains one epoch of 2,048 questions without a process
+    group; that Trainer's epoch with each fill: ms a step and the host's
+    waits a step; a train step's ms without and with a one-rank NCCL
+    group (the all-reduces), each with one profiled step. (e) ``torchrun
+    --standalone --nproc_per_node=1 -m isubgvqa_tpu_torch.cli`` (NCCL)
+    with the same flags: its metric lines equal the run without a
+    group's, and its parameters and BatchNorm buffers too, bitwise or
+    within ``DDP_ATOL``; a second run without a group shows how far two
+    runs differ at all.  Any failure raises."""
+    import torch
+    from isubgvqa_tpu_torch import bench, cli, ops, parallel
+    from isubgvqa_tpu_torch.data import (SyntheticGQA, build_bucket_collators,
+                                         build_datasets,
+                                         iterate_batches_bucketed,
+                                         route_to_buckets)
+    from isubgvqa_tpu_torch.serve import Predictor
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counts = {}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+
+    def read_counts(name, wrappers):
+        """The launches since :func:`zero_counts`; every kernel of
+        ``wrappers`` must have launched."""
+        torch.cuda.synchronize()
+        got = ops.launch_counts(wrappers)
+        if min(got.values()) == 0:
+            raise AssertionError(f"{name}: a kernel never launched: {got}")
+        counts[name] = got
+
+    def counted(name, wrappers, fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after."""
+        zero_counts()
+        out = fn()
+        read_counts(name, wrappers)
+        return out
+
+    setup = bench.build_bench_setup(bench._cfg("gumbel", BENCH_B, "bfloat16"),
+                                    num_batches=FILL_BATCHES, device=dev)
+    cfg, ds = setup.cfg, setup.ds
+    tok = next(iter(setup.collators.values())).tokenizer
+    log(f"[14 native] fixture: {len(ds)} samples in "
+        f"{time.perf_counter() - t_phase:.1f} s; {smi}")
+
+    # (a) every batch of the mix through both fills
+    def fill_set(python):
+        with python_fill() if python else contextlib.nullcontext():
+            return build_bucket_collators(cfg, tok, setup.vocab,
+                                          batch_size=BENCH_B,
+                                          pin_memory=not python)
+
+    native, py = fill_set(False), fill_set(True)
+    if not (all(c.native for c in native.values())
+            and not any(c.native for c in py.values())):
+        raise AssertionError("ISUBGVQA_NATIVE did not select the fill")
+    chunks = [(key, [ds[j] for j in members[i:i + BENCH_B]])
+              for key, members in route_to_buckets(ds, native).items()
+              for i in range(0, len(members), BENCH_B)]
+    n = sum(len(c) for _, c in chunks)
+
+    def fill(colls):
+        t0 = time.perf_counter()
+        out = [colls[key].collate(samples)[0] for key, samples in chunks]
+        return out, time.perf_counter() - t0
+
+    got, first_s = fill(native)          # packs every graph, then fills
+    del got
+    got, native_s = fill(native)
+    want, python_s = fill(py)
+    for i, (a, b) in enumerate(zip(got, want)):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if not (x.dtype == y.dtype and torch.equal(x, y)):
+                raise AssertionError(f"batch {i} {f.name}: native != python")
+    if not all(b.is_pinned() for b in got):
+        raise AssertionError("the native fill's batches are not pinned")
+    trunc = [(sum(c.truncated_nodes for c in colls.values()),
+              sum(c.truncated_edges for c in colls.values()))
+             for colls in (native, py)]
+    if trunc[0] != (2 * trunc[1][0], 2 * trunc[1][1]):  # native filled twice
+        raise AssertionError(f"truncation counts {trunc}")
+    del got, want
+    log(f"[14 native] {n} samples in {len(chunks)} batches over "
+        f"{len(native)} buckets: native fill bit-exact against the Python "
+        f"fill, truncated nodes / edges {trunc[1][0]} / {trunc[1][1]} in "
+        f"both; native {n / native_s:,.0f} samples/s ({native_s * 1e3:.1f} "
+        f"ms; first pass with packing {n / first_s:,.0f}), Python "
+        f"{n / python_s:,.0f} samples/s ({python_s * 1e3:.1f} ms); {smi}")
+
+    # (b) the pipeline with each fill, beside the device-only rate
+    inf = bench.bench_inference(setup=setup)
+    rows = {"native": counted("e2e_native", ops.EVAL_WRAPPERS,
+                              lambda: bench.bench_e2e(setup=setup, epochs=3)),
+            "python": counted("e2e_python", ops.EVAL_WRAPPERS,
+                              lambda: bench.bench_e2e(
+                                  setup=dataclasses.replace(
+                                      setup, collators=py), epochs=3))}
+    for fill_kind, row in rows.items():
+        if row["fill"] != fill_kind:
+            raise AssertionError(f"bench_e2e ran the {row['fill']} fill")
+        log(f"[14 native] bench_e2e ({fill_kind} fill): "
+            f"{row['e2e_qps_per_chip']:,.0f} q/s (best "
+            f"{row['e2e_qps_best']:,.0f}; epochs {row['epoch_seconds']}), "
+            f"{row['e2e_qps_per_chip'] / inf['qps_per_chip']:.3f} of "
+            f"bench_inference's {inf['qps_per_chip']:,.0f} q/s in this run; "
+            f"{smi}")
+    del setup, native, py, chunks, rows
+    torch.cuda.empty_cache()
+
+    # (c) serving 64 questions with each fill
+    pred = Predictor.from_seed(serving_config(), device="cuda")
+    sds = SyntheticGQA(pred.vocab, pred.answers, size=64, seed=0,
+                       shape_mix="gqa")
+    questions = [sds.samples[i][2] for i in range(len(sds))]
+    graphs = [sds.store.scene_graphs[sds.samples[i][1]]
+              for i in range(len(sds))]
+
+    def serve():
+        return pred.predict(questions, graphs, batch_size=32, seed=0)
+
+    answers = {}
+    zero_counts()
+    for fill_kind in ("native", "python", "native", "python"):
+        with python_fill() if fill_kind == "python" else \
+                contextlib.nullcontext():
+            serve()                                        # warm-up
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = serve()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall, fam = device_profile(serve)
+        answers.setdefault(fill_kind, [r.answer for r in res])
+        busy = sum(fam.values())
+        log(f"[14 native] serving 64 questions ({fill_kind} fill): wall "
+            f"{statistics.median(walls):.1f} ms (median of 5; "
+            f"{', '.join(f'{w:.1f}' for w in walls)}), profiled {wall:.1f} "
+            f"ms, device busy " + (f"{busy:.2f} ms ({busy / wall:.1%})"
+                                   if busy else "not measured") + f"; {smi}")
+    if answers["native"] != answers["python"]:
+        raise AssertionError("serving answers differ between the fills")
+    read_counts("serving_fills", ops.EVAL_WRAPPERS)
+    del pred
+    torch.cuda.empty_cache()
+
+    # (d) the CLI without a process group, then its Trainer per fill
+    root = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    argv = ["--synthetic", "--synthetic_shape_mix", "gqa",
+            "--synthetic_size", str(DDP_SIZE), "--sampler_type", "gumbel",
+            "--sample_k", "3", "--mgat_masks", "1", "1", "1", "0.15",
+            "--compute_dtype", "bfloat16", "--batch-size", str(TRAIN_B),
+            "--meta_dir", "", "--epochs", "1"]
+    outs = {k: os.path.join(root, k) for k in ("plain", "again", "ddp")}
+    try:
+        t0 = time.perf_counter()
+        trainer, plain_text = counted("cli_main", ops.WRAPPERS, lambda: silent(
+            cli.main, argv + ["--output_dir", outs["plain"]]))
+        plain_s = time.perf_counter() - t0
+        data_native = trainer.data
+        with python_fill():
+            data_py = build_datasets(trainer.cfg)
+        if any(c.native for c in data_py.bucket_collators["train"].values()):
+            raise AssertionError("the Python fill's Trainer data is native")
+        marks = []
+        step = trainer.train_step
+
+        def marked(state, b):
+            marks.append(time.perf_counter())
+            return step(state, b)
+
+        def two_steps():
+            """Two steps of the epoch's loop: prefetch of this fill's
+            batches, the step, the metric read."""
+            it = trainer._iter_split("train", shuffle=True, seed=0,
+                                     drop_last=True)
+            for i, (b, _) in enumerate(it):
+                _, m = step(trainer.state, b)
+                torch.stack([m["loss_sum"], m["count"]]).tolist()
+                if i == 1:
+                    break
+
+        zero_counts()
+        for epoch, (fill_kind, data) in enumerate(
+                (("native", data_native), ("python", data_py),
+                 ("native", data_native), ("python", data_py))):
+            trainer.data = data
+            marks.clear()
+            trainer.train_step = marked
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            quiet(trainer.train_epoch, 1 + epoch)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            trainer.train_step = step
+            syncs = {k: v / 2 for k, v in host_syncs(two_steps).items()}
+            log(f"[14 native] Trainer epoch ({fill_kind} fill, "
+                f"{len(marks)} steps of {TRAIN_B}): {epoch_s:.2f} s, "
+                f"{statistics.median(np.diff(marks) * 1e3):.1f} ms a step "
+                f"(median, host clock between steps); host calls a step "
+                f"(two steps of the loop) {json.dumps(syncs)}; {smi}")
+            if syncs.get("cudaStreamSynchronize", 0) > MAX_SYNCS_PER_STEP:
+                raise AssertionError(f"host waits a step: {syncs}")
+        read_counts("trainer_fills", ops.TRAIN_WRAPPERS)
+        trainer.data = data_native
+        batch, _ = next(iter(iterate_batches_bucketed(
+            data_native.datasets["train"],
+            data_native.bucket_collators["train"])))
+        batch = batch.to(dev)
+        alone = step_ms(step, trainer.state, batch)
+        alone_prof = device_profile(lambda: step(trainer.state, batch))
+        env = {k: os.environ.get(k) for k in (
+            "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        try:
+            parallel.init_distributed(dev)
+            grouped = counted("step_nccl", ops.TRAIN_WRAPPERS, lambda: step_ms(
+                step, trainer.state, batch))
+            grouped_prof = device_profile(lambda: step(trainer.state, batch))
+            grouped_syncs = host_syncs(lambda: step(trainer.state, batch))
+        finally:
+            parallel.shutdown()
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        after = step_ms(step, trainer.state, batch)
+        log(f"[14 ddp] train step at {TRAIN_B} ({tuple(batch.node_tokens.shape)}"
+            f"): {alone:.2f} / {after:.2f} ms without a process group (before "
+            f"/ after), {grouped:.2f} ms in a one-rank NCCL group (the "
+            f"gradients' flat all-reduce, the BatchNorm sums; "
+            f"{grouped - (alone + after) / 2:+.2f} ms); host calls of the "
+            f"grouped step {json.dumps(grouped_syncs)}; {smi}")
+        for tag, (wall, fam) in (("alone", alone_prof),
+                                 ("grouped", grouped_prof)):
+            log(f"[14 ddp] one profiled step, {tag}: wall {wall:.1f} ms, "
+                f"device busy {sum(fam.values()):.2f} ms; by kernel: "
+                f"{by_kernel(fam)}")
+        del trainer, data_native, data_py, batch
+        torch.cuda.empty_cache()
+
+        # (e) the same run under torchrun (NCCL, one rank), and a second
+        # run without a group: the floor of what two runs can differ by
+        runner = shutil.which("torchrun")
+        cmd = ([runner] if runner else
+               [sys.executable, "-m", "torch.distributed.run"])
+        cmd += ["--standalone", "--nproc_per_node=1", "-m",
+                "isubgvqa_tpu_torch.cli", *argv, "--output_dir", outs["ddp"]]
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=DDP_TIMEOUT)
+        ddp_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        _, again_text = counted("cli_main_again", ops.WRAPPERS, lambda: silent(
+            cli.main, argv + ["--output_dir", outs["again"]]))
+        lines = metric_lines(proc.stdout)
+        if not lines or not (lines == metric_lines(plain_text)
+                             == metric_lines(again_text)):
+            raise AssertionError(f"metric lines differ:\n{lines}\n"
+                                 f"{metric_lines(plain_text)}")
+        sd = {k: torch.load(os.path.join(v, "checkpoint"), map_location="cpu",
+                            weights_only=True)["state_dict"]
+              for k, v in outs.items()}
+        if not set(sd["plain"]) == set(sd["ddp"]) == set(sd["again"]):
+            raise AssertionError("the checkpoints hold other tensors")
+
+        def differ(other):
+            return {k: float((sd["plain"][k].float()
+                              - sd[other][k].float()).abs().max())
+                    for k in sd["plain"]
+                    if not torch.equal(sd["plain"][k], sd[other][k])}
+
+        ddp_diff, floor = differ("ddp"), differ("again")
+        worst = max(ddp_diff.values(), default=0.0)
+        n_all = len(sd["plain"])
+        buffers = sum("running" in k for k in sd["plain"])
+        log(f"[14 ddp] torchrun --standalone --nproc_per_node=1 -m "
+            f"isubgvqa_tpu_torch.cli (NCCL, {DDP_SIZE} questions, 1 epoch "
+            f"at {TRAIN_B}) in {ddp_s:.1f} s against {plain_s:.1f} s "
+            f"without a group: {len(lines)} metric lines equal; of the "
+            f"checkpoint's {n_all} tensors ({buffers} BatchNorm running "
+            f"statistics) {n_all - len(ddp_diff)} bitwise equal, the rest "
+            f"within {worst:.3g} (bound {DDP_ATOL}) {json.dumps(ddp_diff)}; "
+            f"a second run without a group differs from the first in "
+            f"{len(floor)} tensors {json.dumps(floor)}; {smi}")
+        if worst > DDP_ATOL:
+            raise AssertionError(f"torchrun against no group: {ddp_diff}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[14 native+ddp] launches of its paths (each counted from 0): "
+        f"{json.dumps(counts)}")
+    log(f"[14 native+ddp] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2578,7 +2983,7 @@ def main() -> int:
     from isubgvqa_tpu_torch.data import SceneGraphVocab
 
     t0 = time.perf_counter()
-    name, _ = phase_device()
+    name, smi = phase_device()
     phase_build()
     cfg = serving_config()
     ref_model = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
@@ -2603,6 +3008,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_counts["variants"], variant_times = phase_variants(
         torch.device("cuda"))
+    torch.cuda.empty_cache()
+    bench_counts.update({f"native_ddp.{k}": v
+                         for k, v in phase_native_ddp(smi).items()})
     line = []
     for k, (src, replaces) in KERNELS.items():
         r = entries[(k, torch.bfloat16)]

@@ -27,9 +27,11 @@ The port of the JAX package's root ``bench.py``, by the same method:
   MFU and the peak are ``null``.
 
 Prints the per-bucket breakdown as JSON lines on stderr and one JSON
-line on stdout.  ``--e2e`` adds the end-to-end pipeline (bucketed
-iterator, Python collate, :func:`~isubgvqa_tpu_torch.data.prefetch` to
-the card, forward); ``--explain`` adds explanation extraction end to end
+line on stdout; each row names the collate fill of its fixture
+(``fill``: ``native``, the C++ fill into pinned memory, or ``python``
+under ``ISUBGVQA_NATIVE=0``).  ``--e2e`` adds the end-to-end pipeline
+(bucketed iterator, collate, :func:`~isubgvqa_tpu_torch.data.prefetch`
+to the card, forward); ``--explain`` adds explanation extraction end to end
 (:func:`bench_explain`, its rates also in the stdout line); ``--full``
 adds those, the inference rows of the imle, aimle and simple samplers
 and the training step of all four, as the root ``bench.py --full``
@@ -142,7 +144,8 @@ def build_bench_setup(cfg: Config, num_batches: int = 12, min_timed: int = 4,
     tok = HashWordTokenizer(vocab_size=cfg.text_vocab_size,
                             max_len=cfg.question_len)
     collators = build_bucket_collators(cfg, tok, vocab,
-                                       batch_size=cfg.batch_size)
+                                       batch_size=cfg.batch_size,
+                                       pin_memory=dev.type == "cuda")
     bucket_batches, bucket_weight = build_bucket_streams(
         ds, collators, cfg.batch_size, min_timed)
     cfg = dataclasses.replace(cfg, num_answers=len(answers))
@@ -167,6 +170,13 @@ def for_sampler(setup: BenchSetup, sampler: str,
         setup.model = build_model(cfg, setup.vocab, setup.device)
         setup.aimle_states = make_aimle_states(cfg, setup.device)
     return setup
+
+
+def fill_name(collators) -> str:
+    """Which collate fill ``collators`` run: ``native`` (the C++ fill)
+    or ``python`` (``ISUBGVQA_NATIVE=0``)."""
+    return ("native" if all(c.native for c in collators.values())
+            else "python")
 
 
 def _sync(device: torch.device) -> None:
@@ -290,6 +300,7 @@ def bench_inference(sampler: str = "gumbel", batch_size: int = 2048,
         del batches
     return {
         "sampler": cfg.sampler_type,
+        "fill": fill_name(setup.collators),
         "device": _device_name(dev),
         "dtype": cfg.compute_dtype,
         "batch_size": cfg.batch_size,
@@ -309,11 +320,11 @@ def bench_e2e(sampler: str = "gumbel", batch_size: int = 2048,
               epochs: int = 3, device=None,
               setup: Optional[BenchSetup] = None) -> dict:
     """End-to-end eval pipeline: the bucketed iterator (shuffled, grouped
-    by bucket) collating in Python, :func:`prefetch` (depth 3) copying to
-    the card, and the forward with at most 4 batches in flight, over a
-    full epoch of the fixture; questions per second over the epoch's real
-    samples, the median of ``epochs`` epochs, after one forward per
-    bucket as a warm-up."""
+    by bucket) collating with the setup's fill, :func:`prefetch` (depth 3)
+    copying to the card, and the forward with at most 4 batches in flight,
+    over a full epoch of the fixture; questions per second over the
+    epoch's real samples, the median of ``epochs`` epochs, after one
+    forward per bucket as a warm-up."""
     if setup is None:
         setup = build_bench_setup(_cfg(sampler, batch_size, dtype, node_caps),
                                   iters, device=device)
@@ -351,6 +362,7 @@ def bench_e2e(sampler: str = "gumbel", batch_size: int = 2048,
     sec = float(np.median(epoch_s))
     return {
         "sampler": cfg.sampler_type,
+        "fill": fill_name(setup.collators),
         "device": _device_name(dev),
         "e2e_qps_per_chip": n_questions / sec,
         "e2e_qps_best": n_questions / float(np.min(epoch_s)),
@@ -401,6 +413,7 @@ def bench_train_step(sampler: str = "gumbel", batch_size: int = 256,
         del batches
     return {
         "sampler": cfg.sampler_type,
+        "fill": fill_name(setup.collators),
         "device": _device_name(dev),
         "dtype": cfg.compute_dtype,
         "batch_size": cfg.batch_size,
@@ -437,7 +450,7 @@ def bench_explain(sampler: str = "gumbel", batch_size: int = 2048,
         _cfg(sampler, batch_size, dtype, node_caps), synthetic=True,
         synthetic_size=dev_size * 4, synthetic_shape_mix="gqa",
         eval_batch_factor=1)          # eval batches at the benched size
-    data = build_datasets(cfg)
+    data = build_datasets(cfg, pin_memory=dev.type == "cuda")
     cfg = dataclasses.replace(cfg, num_answers=len(data.answers))
     model = build_model(cfg, data.vocab, dev)
     aimle_states = make_aimle_states(cfg, dev)
@@ -455,6 +468,7 @@ def bench_explain(sampler: str = "gumbel", batch_size: int = 2048,
     sec = float(np.median(times))
     return {
         "sampler": cfg.sampler_type,
+        "fill": fill_name(data.bucket_collators["dev"]),
         "device": _device_name(dev),
         "batch_size": cfg.batch_size,
         "explain_qps_per_chip": n / sec,

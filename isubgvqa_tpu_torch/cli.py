@@ -12,8 +12,18 @@ defaults to the card, and ``cpu`` runs the plain PyTorch path.  Every
 model variant runs (``--text_sampling``, ``--use_all_instrs``,
 ``--concat_instr``, ``--use_global_mask``, ``--interpretable_mode``,
 ``--node_classification``, ``--use_instruction 0``, ``--use_topk 0``).
-The port runs one process: ``--model_parallel`` and ``--num_data_shards``
-above 1 raise (ROADMAP item 13).
+
+Data-parallel training runs one process per card under ``torchrun`` (the
+counterpart of ``scripts/run_training_spmd.sh``)::
+
+    torchrun --standalone --nproc_per_node=N -m isubgvqa_tpu_torch.cli \
+        --synthetic --epochs 2
+
+Each rank joins the process group (NCCL on cards, Gloo with ``--device
+cpu``), takes its card ``cuda:LOCAL_RANK`` and a batch of
+``--batch-size``, so the global batch is ``N`` times that.
+``--num_data_shards``, when given, must equal ``N``; ``--model_parallel``
+above 1 (the JAX mesh's tensor-parallel axis) raises.
 """
 
 from __future__ import annotations
@@ -84,7 +94,8 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--bi_qa", action="store_true")
     p.add_argument("--mask_regularization", action="store_true")
     p.add_argument("--distributed", action="store_true",
-                   help="no-op: the port runs one process")
+                   help="no-op: torchrun's environment starts data "
+                        "parallelism")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain PyTorch path)")
@@ -101,11 +112,10 @@ def get_argparser() -> argparse.ArgumentParser:
                    default=d.synthetic_shape_mix, choices=["small", "gqa"])
     p.add_argument("--compute_dtype", default=d.compute_dtype)
     p.add_argument("--num_data_shards", type=int, default=None,
-                   help="data-parallel ranks (the port runs one; ROADMAP "
-                        "item 13)")
+                   help="data-parallel ranks: torchrun's world size (the "
+                        "default), which a value given must equal")
     p.add_argument("--model_parallel", type=int, default=d.model_parallel,
-                   help="tensor-parallel ranks (the port runs one; ROADMAP "
-                        "item 13)")
+                   help="tensor-parallel ranks (the port runs 1)")
     p.add_argument("--question_len", type=int, default=d.question_len)
     p.add_argument("--clip_weights", default=d.clip_weights,
                    help="pretrained CLIP text token/position tables "
@@ -143,14 +153,20 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return dataclasses.replace(base, **overrides)
 
 
-def check_cli_supported(cfg: Config) -> None:
-    """Raise on what the port does not run yet: more than one process
-    (ROADMAP item 13)."""
-    if cfg.model_parallel > 1 or (cfg.num_data_shards or 1) > 1:
+def check_cli_supported(cfg: Config, world: int = 1) -> None:
+    """Raise on what the port does not run: tensor parallelism (the JAX
+    mesh's ``model`` axis), or ``num_data_shards`` other than the
+    ``world`` size of the process group (ROADMAP item 13)."""
+    if cfg.model_parallel > 1:
         raise NotImplementedError(
-            f"model_parallel={cfg.model_parallel}, num_data_shards="
-            f"{cfg.num_data_shards}: the port runs one process (ROADMAP.md, "
-            f"Queue 1 item 13: DDP)")
+            f"model_parallel={cfg.model_parallel}: the port has no tensor "
+            f"parallelism, only data parallelism (ROADMAP.md, Queue 1 "
+            f"item 13)")
+    if cfg.num_data_shards not in (None, world):
+        raise NotImplementedError(
+            f"num_data_shards={cfg.num_data_shards} but the process group "
+            f"has {world} rank(s): launch with torchrun --nproc_per_node="
+            f"{cfg.num_data_shards} (ROADMAP.md, Queue 1 item 13)")
 
 
 def main(argv=None):
@@ -161,16 +177,38 @@ def main(argv=None):
         parents=[get_argparser()])
     args = parser.parse_args(argv)
     cfg = config_from_args(args).scaled()     # main.py:54-55
-    check_cli_supported(cfg)
+    check_cli_supported(cfg, int(os.environ.get("WORLD_SIZE", "1")))
 
     import torch
 
-    from .data.build import build_datasets
+    from . import parallel
     from .models.build import resolve_device
+
+    if args.device is None and "LOCAL_RANK" in os.environ \
+            and torch.cuda.is_available():
+        device = parallel.device_for_rank()       # torchrun: a card a rank
+    else:
+        device = resolve_device(args.device)
+    owns_group = (not parallel.is_initialized()
+                  and parallel.init_distributed(device))
+    try:
+        check_cli_supported(cfg, parallel.world_size())
+        return _run(cfg, device)
+    finally:
+        if owns_group:
+            parallel.shutdown()
+
+
+def _run(cfg: Config, device):
+    import torch
+
+    from .data.build import build_datasets
+    from .parallel import is_main_process, world_size
     from .train.loop import Trainer
 
-    device = resolve_device(args.device)
-    if cfg.output_dir:
+    main_process = is_main_process()
+    say = print if main_process else (lambda *a, **k: None)
+    if cfg.output_dir and main_process:
         pathlib.Path(cfg.output_dir).mkdir(parents=True, exist_ok=True)
         logging.basicConfig(                  # main.py:60-66
             filename=os.path.join(cfg.output_dir, cfg.log_name),
@@ -180,11 +218,14 @@ def main(argv=None):
         )
         logging.info(str(cfg))
 
-    print(f"torch version: {torch.__version__}")
-    print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                                 if device.type == "cuda" else ""))
-    print(f"scaled batch size of {cfg.batch_size}")
-    print(f"scaled learning rate of {cfg.lr}")
+    say(f"torch version: {torch.__version__}")
+    say(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
+                               if device.type == "cuda" else ""))
+    if world_size() > 1:
+        say(f"data parallel: {world_size()} ranks, global batch "
+            f"{world_size() * cfg.batch_size}")
+    say(f"scaled batch size of {cfg.batch_size}")
+    say(f"scaled learning rate of {cfg.lr}")
 
     # the reference replaces args wholesale from the checkpoint on
     # resume (main.py:128-137): adopt the checkpointed config up front
@@ -201,14 +242,14 @@ def main(argv=None):
                 pre_eval=cfg.pre_eval, output_dir=cfg.output_dir,
                 epochs=cfg.epochs)
 
-    data = build_datasets(cfg)
+    data = build_datasets(cfg, pin_memory=device.type == "cuda")
     # the classifier's width is the answer map's (1842 with the GQA
     # meta assets; isubgvqa.py:207)
     cfg = dataclasses.replace(cfg, num_answers=len(data.answers))
 
     trainer = Trainer(cfg, data, device=device)
     n_params = sum(p.numel() for p in trainer.state.model.parameters())
-    print("number of params:", n_params)
+    say("number of params:", n_params)
 
     if cfg.resume:
         if os.path.exists(os.path.join(cfg.output_dir, cfg.resume)) or \
@@ -218,13 +259,13 @@ def main(argv=None):
             if not cfg.evaluate:
                 cfg = dataclasses.replace(cfg, start_epoch=start_epoch)
                 trainer.cfg = cfg
-            print(f"=> loaded checkpoint '{cfg.resume}' (epoch {start_epoch - 1})")
+            say(f"=> loaded checkpoint '{cfg.resume}' (epoch {start_epoch - 1})")
             if not cfg.evaluate:
                 opt = trainer.state.optimizer
-                print(f"=> step {trainer.state.step}, optimizer count "
-                      f"{opt.count}, learning rate {opt.lr()!r}")
+                say(f"=> step {trainer.state.step}, optimizer count "
+                    f"{opt.count}, learning rate {opt.lr()!r}")
         else:
-            print(f"=> no checkpoint found at '{cfg.resume}'")
+            say(f"=> no checkpoint found at '{cfg.resume}'")
 
     trainer.fit()
     return trainer

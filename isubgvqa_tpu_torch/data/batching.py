@@ -7,8 +7,10 @@ bucket routing, the same sharded and bucketed iteration, the same
 multistep grouping (:func:`group_multistep`, as lists), and a
 background :func:`prefetch` that copies batches to the card on a side
 stream.  :class:`GraphBatch` is a dataclass of tensors with the JAX
-pytree's field names, dtypes and shapes.  Only the Python fill path is
-ported; the native C++ collate is not.
+pytree's field names, dtypes and shapes.  A :class:`Collator` given a
+:class:`~isubgvqa_tpu_torch.native.PackedGraphStore` fills its batches in
+C++ (``native/csrc/collate.cpp``); the Python fill stays as the oracle
+and as what ``ISUBGVQA_NATIVE=0`` selects.
 """
 
 from __future__ import annotations
@@ -57,6 +59,11 @@ class GraphBatch:
     def pin_memory(self) -> "GraphBatch":
         return self._map(torch.Tensor.pin_memory)
 
+    def is_pinned(self) -> bool:
+        """Whether every tensor lies in pinned host memory."""
+        return all(getattr(self, f.name).is_pinned()
+                   for f in dataclasses.fields(self))
+
     def record_stream(self, stream) -> None:
         """Mark every tensor as used on ``stream`` (CUDA tensors)."""
         for f in dataclasses.fields(self):
@@ -90,21 +97,93 @@ class Collator:
 
     Oversized graphs are truncated to the caps; dropped nodes and edges
     are counted in ``truncated_nodes`` / ``truncated_edges``.
-    """
 
-    def __init__(self, tokenizer, spec: BucketSpec, vocab=None):
+    Given a ``packed_store``
+    (:class:`~isubgvqa_tpu_torch.native.PackedGraphStore`, as
+    ``build_bucket_collators`` makes one), the per-graph loop runs in the
+    native C++ fill, whose outputs lie in pinned memory when the store
+    pins; the question arrays then join them there.  ``native`` says
+    which fill runs.  The Python loop stays as the oracle and is what
+    runs without a store or under ``ISUBGVQA_NATIVE=0``; both give the
+    same batches and truncation counts."""
+
+    def __init__(self, tokenizer, spec: BucketSpec, vocab=None,
+                 packed_store=None):
         self.tokenizer = tokenizer
         self.spec = spec
         self._vocab = vocab
         self.truncated_nodes = 0
         self.truncated_edges = 0
+        self._packed = packed_store
+        self._native_lib = None
+        if packed_store is not None:
+            from ..native.collate import load_collate_lib
+            self._native_lib = load_collate_lib()
+
+    @property
+    def native(self) -> bool:
+        """Whether batches are filled by the native C++ fill."""
+        return self._native_lib is not None
 
     def collate(self, samples: Sequence) -> tuple[GraphBatch, BatchMeta]:
+        assert len(samples) <= self.spec.batch_size
+        if self.native:
+            return self._collate_native(samples)
+        return self._collate_python(samples)
+
+    def _questions_into(self, samples: Sequence, q_ids: np.ndarray,
+                        q_mask: np.ndarray) -> None:
+        """Tokenize the questions into ``q_ids`` / ``q_mask`` ``[B, L]``,
+        padding rows past the real samples."""
+        qst_tokens, qst_mask = self.tokenizer(
+            [s.question for s in samples], max_len=self.spec.question_len)
+        num_real = len(samples)
+        q_ids[:num_real] = qst_tokens
+        q_ids[num_real:] = self.tokenizer.pad_id
+        q_mask[:num_real] = qst_mask
+        q_mask[num_real:] = 0
+
+    @staticmethod
+    def _meta(samples: Sequence, graphs: List[GraphArrays]) -> BatchMeta:
+        return BatchMeta(
+            question_ids=[s.question_id for s in samples],
+            image_ids=[s.image_id for s in samples],
+            questions=[s.question for s in samples],
+            qst_types=[s.qst_type for s in samples],
+            num_real=len(samples),
+            graphs=graphs,
+        )
+
+    def _collate_native(self, samples: Sequence
+                        ) -> tuple[GraphBatch, BatchMeta]:
+        spec, store = self.spec, self._packed
+        graphs = [s.graph for s in samples]
+        rows = store.rows(graphs)
+        labels_in = np.asarray([s.label for s in samples], np.int32)
+        (node_tokens, node_bbox, node_mask, edge_src, edge_dst, edge_token,
+         edge_sign, edge_mask, labels, sample_mask, tn, te) = \
+            store.fill_batch(self._native_lib, rows, labels_in,
+                             spec.batch_size, spec.max_nodes_per_graph,
+                             spec.max_edges_per_graph)
+        self.truncated_nodes += tn
+        self.truncated_edges += te
+        shape = (spec.batch_size, spec.question_len)
+        q_ids = store.empty(shape, torch.int32)
+        q_mask = store.empty(shape, torch.int32)
+        self._questions_into(samples, q_ids.numpy(), q_mask.numpy())
+        batch = GraphBatch(
+            node_tokens=node_tokens, node_bbox=node_bbox, node_mask=node_mask,
+            edge_src=edge_src, edge_dst=edge_dst, edge_token=edge_token,
+            edge_sign=edge_sign, edge_mask=edge_mask, qst_tokens=q_ids,
+            qst_mask=q_mask, labels=labels, sample_mask=sample_mask)
+        return batch, self._meta(samples, graphs)
+
+    def _collate_python(self, samples: Sequence
+                        ) -> tuple[GraphBatch, BatchMeta]:
         spec = self.spec
         b, n, e = (spec.batch_size, spec.max_nodes_per_graph,
                    spec.max_edges_per_graph)
         num_real = len(samples)
-        assert num_real <= b
 
         node_tokens = np.ones((b, n, 4), np.int32)   # <pad> token id 1
         node_bbox = np.zeros((b, n, 4), np.float32)
@@ -142,13 +221,9 @@ class Collator:
             labels[gi] = samples[gi].label
             sample_mask[gi] = 1.0
 
-        qst_tokens, qst_mask = self.tokenizer(
-            [s.question for s in samples], max_len=spec.question_len)
-        q_ids = np.full((b, spec.question_len), self.tokenizer.pad_id,
-                        np.int32)
-        q_mask = np.zeros((b, spec.question_len), np.int32)
-        q_ids[:num_real] = qst_tokens
-        q_mask[:num_real] = qst_mask
+        q_ids = np.empty((b, spec.question_len), np.int32)
+        q_mask = np.empty((b, spec.question_len), np.int32)
+        self._questions_into(samples, q_ids, q_mask)
 
         t = torch.from_numpy
         batch = GraphBatch(
@@ -159,15 +234,7 @@ class Collator:
             qst_tokens=t(q_ids), qst_mask=t(q_mask), labels=t(labels),
             sample_mask=t(sample_mask),
         )
-        meta = BatchMeta(
-            question_ids=[s.question_id for s in samples],
-            image_ids=[s.image_id for s in samples],
-            questions=[s.question for s in samples],
-            qst_types=[s.qst_type for s in samples],
-            num_real=num_real,
-            graphs=graphs,
-        )
-        return batch, meta
+        return batch, self._meta(samples, graphs)
 
 
 def iterate_batches(dataset, collator: Collator, shuffle: bool = False,
@@ -338,11 +405,13 @@ def prefetch(iterator: Iterator, depth: int = 2, device=None) -> Iterator:
     each item in the producer thread; a CUDA device copies each item's
     :class:`GraphBatch` (the item itself, or the first of a ``(batch,
     meta)`` pair) from pinned host memory with ``non_blocking`` copies on
-    a side stream.  Before the consumer gets a copied batch, its current
-    stream waits on the copy's event, and every tensor of the batch is
-    recorded on that stream, so the allocator does not hand the memory
-    to a later copy while the consumer's work may still read it.  Any
-    other device takes a plain ``.to(device)``.
+    a side stream (a batch the native fill put in pinned memory is copied
+    from there; any other is first copied into pinned memory).  Before
+    the consumer gets a copied batch, its current stream waits on the
+    copy's event, and every tensor of the batch is recorded on that
+    stream, so the allocator does not hand the memory to a later copy
+    while the consumer's work may still read it.  Any other device takes
+    a plain ``.to(device)``.
     """
     import queue
     import threading
@@ -368,7 +437,7 @@ def prefetch(iterator: Iterator, depth: int = 2, device=None) -> Iterator:
         batch, meta, pair = split(item)
         event = None
         if cuda:
-            host = batch.pin_memory()
+            host = batch if batch.is_pinned() else batch.pin_memory()
             with torch.cuda.device(dev), torch.cuda.stream(side):
                 batch = host.to(dev, non_blocking=True)
                 event = torch.cuda.Event()

@@ -6,8 +6,10 @@ scene-graph store, collators per split and size bucket, and the
 reference's evaluation batch of ``eval_batch_factor`` times the training
 batch (``datasets/build.py:55-67``).  It falls back to the synthetic
 mini-GQA fixture when ``cfg.synthetic`` is set or the real JSONs are
-absent.  The collators fill batches in Python: the JAX package's native
-C++ collate over a packed graph store is not ported.
+absent.  Every collator of the three splits fills its batches in C++
+over one shared :class:`~isubgvqa_tpu_torch.native.PackedGraphStore`
+(graphs pack once), in pinned memory for a caller that feeds the card;
+``ISUBGVQA_NATIVE=0`` selects the Python fill.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import os
 from typing import Dict
 
 from ..config import Config
+from ..native.collate import PackedGraphStore, load_collate_lib
 from .batching import BucketSpec, Collator
 from .gqa import AnswerMap, GQADataset
 from .scene_graph import SceneGraphStore
@@ -42,7 +45,9 @@ def _has_real_gqa(cfg: Config) -> bool:
         cfg.data_dir, "questions", "train_balanced_questions.json"))
 
 
-def build_datasets(cfg: Config) -> DataBundle:
+def build_datasets(cfg: Config, pin_memory: bool = False) -> DataBundle:
+    """``pin_memory``: the native fill's batches in pinned host memory
+    (for a caller that copies them to the card; it needs CUDA)."""
     vocab = SceneGraphVocab.build(cfg.meta_dir, glove_path=cfg.glove_path,
                                   seed=cfg.seed)
     answers = AnswerMap.build(cfg.meta_dir, cfg.num_answers)
@@ -66,8 +71,10 @@ def build_datasets(cfg: Config) -> DataBundle:
                                         ("testdev", "testdev"))}
     eval_bs = cfg.batch_size * cfg.eval_batch_factor
     split_bs = {"train": cfg.batch_size, "dev": eval_bs, "testdev": eval_bs}
+    packed = _make_packed_store(pin_memory)
     bucket_collators = {
-        split: build_bucket_collators(cfg, tokenizer, vocab, batch_size=bs)
+        split: build_bucket_collators(cfg, tokenizer, vocab, batch_size=bs,
+                                      packed_store=packed)
         for split, bs in split_bs.items()}
     top = (cfg.max_nodes_per_graph, cfg.question_len)
     collators = {split: colls[top]
@@ -77,12 +84,24 @@ def build_datasets(cfg: Config) -> DataBundle:
                       bucket_collators=bucket_collators)
 
 
-def build_bucket_collators(cfg: Config, tokenizer, vocab,
-                           batch_size: int) -> Dict[tuple, Collator]:
+def _make_packed_store(pin_memory: bool = False):
+    """A :class:`PackedGraphStore` for the native fill, or None under
+    ``ISUBGVQA_NATIVE=0`` (the collators then fill in Python).  A failed
+    build of the fill raises."""
+    if load_collate_lib() is None:
+        return None
+    return PackedGraphStore(pin_memory=pin_memory)
+
+
+def build_bucket_collators(cfg: Config, tokenizer, vocab, batch_size: int,
+                           packed_store=None, pin_memory: bool = False
+                           ) -> Dict[tuple, Collator]:
     """Collators keyed by ``(node_cap, question_len_cap)`` over the cross
     product of the configured node and question-length buckets.  Node
     caps clamp to ``max_nodes_per_graph``; each small bucket gets a
-    4x-nodes edge budget; the largest keeps ``max_edges_per_graph``."""
+    4x-nodes edge budget; the largest keeps ``max_edges_per_graph``.
+    They share ``packed_store``, or a new store (pinned under
+    ``pin_memory``) when none is given."""
     n_max, e_max = cfg.max_nodes_per_graph, cfg.max_edges_per_graph
     q_max = cfg.question_len
     n_caps = sorted({min(c, n_max) for c in (cfg.bucket_node_caps or ())}
@@ -93,12 +112,14 @@ def build_bucket_collators(cfg: Config, tokenizer, vocab,
     def e_cap_for(n_cap: int) -> int:
         return e_max if n_cap == n_max else min(max(4 * n_cap, 1), e_max)
 
+    if packed_store is None:
+        packed_store = _make_packed_store(pin_memory)
     return {
         (n_cap, q_cap): Collator(
             tokenizer,
             BucketSpec(batch_size=batch_size, max_nodes_per_graph=n_cap,
                        max_edges_per_graph=e_cap_for(n_cap),
                        question_len=q_cap),
-            vocab=vocab)
+            vocab=vocab, packed_store=packed_store)
         for n_cap in n_caps for q_cap in q_caps
     }

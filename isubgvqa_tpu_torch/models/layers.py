@@ -31,6 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_sum, shard_draw
+
 
 def linear(x: torch.Tensor, lin: nn.Linear,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -60,7 +62,8 @@ def keep_mask(shape, rate: float, generator: Optional[torch.Generator],
               device) -> torch.Tensor:
     """Scaled dropout keep mask, f32 values ``{0, 1/(1-rate)}`` (keep with
     probability ``1 - rate``, ``layers.py:_keep_mask``)."""
-    u = torch.rand(shape, generator=generator, device=device)
+    u = shard_draw(lambda s: torch.rand(s, generator=generator,
+                                        device=device), shape)
     return (u < 1.0 - rate).float() / (1.0 - rate)
 
 
@@ -196,7 +199,15 @@ class MaskedBatchNorm(nn.Module):
     with the batch's mean and two-pass (centred) variance over the rows
     where ``mask`` is set (count clamped at 1), and updates the running
     statistics in place with keep factor 0.9, storing the unbiased
-    variance ``var * count / max(count - 1, 1)`` as torch does."""
+    variance ``var * count / max(count - 1, 1)`` as torch does.
+
+    In a data-parallel run the batch is every rank's rows, as under the
+    JAX package's ``axis_name`` psum: the count with the sum, then the
+    centred squares, are summed over the ranks by
+    :func:`~isubgvqa_tpu_torch.parallel.all_reduce_sum`, whose backward
+    sums their gradients over the ranks (``SyncBatchNorm``'s rule), so
+    the statistics, the gradients and the running buffers agree on
+    every rank."""
 
     momentum = 0.9
 
@@ -216,10 +227,12 @@ class MaskedBatchNorm(nn.Module):
         else:
             m = (torch.ones_like(xf[:, :1]) if mask is None
                  else mask.float().reshape(-1, 1))
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(0) / count
+            sums = all_reduce_sum(torch.cat([(xf * m).sum(0), m.sum(0)]))
+            count = torch.clamp(sums[dim], min=1.0)
+            mean = sums[:dim] / count
             d = xf - mean
-            var = torch.clamp((d * d * m).sum(0) / count, min=0.0)
+            var = torch.clamp(all_reduce_sum((d * d * m).sum(0)) / count,
+                              min=0.0)
             with torch.no_grad():
                 unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
                 k = self.momentum

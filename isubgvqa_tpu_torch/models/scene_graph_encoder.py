@@ -80,23 +80,27 @@ class SceneGraphEncoder(nn.Module):
         """-> (x_encoded [B, N, 300], edge_attr_encoded [B, E, 300]).
         ``expl_x_embed_sum [B, N, 300]`` (the explainer's stage-0 bypass,
         ``scene_graph_encoder.py:72-100``) replaces the token sum; the bbox
-        branch, the reduction and the MetaLayer run on it."""
+        branch, the reduction and the MetaLayer run on it.  As in the JAX
+        package, the bypass keeps its own dtype (f32 from the explainer)
+        and so do the bbox input and the concatenation with it, up to the
+        reduction's BatchNorm; only the Dense layers compute at
+        ``dtype``."""
         emb = self.sg_vocab_embedding.weight
         if expl_x_embed_sum is not None:
-            x_sum = expl_x_embed_sum.to(dtype)
+            x_sum = expl_x_embed_sum
         else:
             tok = F.embedding(batch.node_tokens.long(), emb)  # [B, N, 4, C]
             x_sum = tok.to(dtype).float().sum(-2).to(dtype)
         node_mask = batch.node_mask
 
-        bb = batch.node_bbox.to(dtype)
+        bb = batch.node_bbox.to(x_sum.dtype)
         seq = self.bbox_encoding
         bb = seq[0](bb, node_mask, train)
         bb = F.gelu(linear(bb, seq[1], dtype))
         bb = seq[3](bb, node_mask, train)
         bb = F.gelu(linear(bb, seq[4], dtype))
 
-        x = torch.cat([x_sum, bb.to(dtype)], dim=-1)
+        x = torch.cat([x_sum, bb.to(x_sum.dtype)], dim=-1)
         x = self.feat_reduc[0](x, node_mask, train)
         x = F.gelu(linear(x, self.feat_reduc[1], dtype))
 

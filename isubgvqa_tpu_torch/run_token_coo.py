@@ -55,7 +55,7 @@ def main(argv=None):
     if args.synthetic:
         cfg = dataclasses.replace(cfg, synthetic=True)
 
-    data = build_datasets(cfg)
+    data = build_datasets(cfg, pin_memory=device.type == "cuda")
     cfg = dataclasses.replace(cfg, num_answers=len(data.answers))
     state = create_train_state(cfg, data.vocab, steps_per_epoch=1,
                                device=device)

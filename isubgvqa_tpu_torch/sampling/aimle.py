@@ -17,7 +17,10 @@ JAX threads it out of the backward as the state input's cotangent; here
 the backward writes the new ``beta``, ``grad_norm`` and ``prev_update``
 **in place** into the :class:`AIMLEState`'s tensors, which live on the
 model's device.  Every rule is a ``torch.where`` on the device, so the
-backward never waits on it.  The state is read only in the backward (an
+backward never waits on it.  In a data-parallel run the norms and the
+count of nonzero entries are taken over every rank's rows (the JAX
+package's, over a sharded batch), so each rank writes the same state.
+The state is read only in the backward (an
 eval forward leaves it as it is), and no autograd graph holds it, so
 the in-place write meets no version check.
 """
@@ -29,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import all_reduce_, is_initialized
 from .noise import perturbation
 from .topk import topk_mask
 
@@ -80,10 +84,17 @@ def init_aimle_state(device=None, initial_beta: float = 0.0,
                       prev_update=scalar(0.0))
 
 
-def _perturbation_magnitude(beta, theta, dy):
+def _norms(*ts):
+    """The L2 norm of each tensor over the global batch: in a
+    data-parallel run the ranks' squared sums are summed first."""
+    if not is_initialized():
+        return [torch.linalg.vector_norm(t) for t in ts]
+    sq = all_reduce_(torch.stack([t.float().square().sum() for t in ts]))
+    return list(torch.sqrt(sq))
+
+
+def _perturbation_magnitude(beta, norm_theta, norm_dy):
     """``beta * |theta| / |dy|``, 0 when ``|dy| = 0``."""
-    norm_dy = torch.linalg.vector_norm(dy)
-    norm_theta = torch.linalg.vector_norm(theta)
     return torch.where(norm_dy > 0.0,
                        beta * norm_theta / torch.clamp(norm_dy, min=1e-30),
                        0.0)
@@ -105,7 +116,8 @@ class _AIMLETopK(torch.autograd.Function):
         dy = dy.transpose(0, 1)                                # [B, S, N]
         theta_tiled = theta[:, None, :].expand(dy.shape)
 
-        lam = _perturbation_magnitude(state.beta, theta_tiled, dy)
+        norm_dy, norm_tiled, norm_theta = _norms(dy, theta_tiled, theta)
+        lam = _perturbation_magnitude(state.beta, norm_tiled, norm_dy)
         target_r = cfg.alpha * theta_tiled - lam * dy
         target_l = (cfg.alpha * theta_tiled + lam * dy
                     if cfg.symmetric_perturbation
@@ -116,12 +128,18 @@ class _AIMLETopK(torch.autograd.Function):
         if cfg.symmetric_perturbation:
             grad3d = grad3d / 2.0
 
-        lam_process = _perturbation_magnitude(state.beta, theta, dy)
-        b, s = grad3d.shape[0], grad3d.shape[1]
+        lam_process = _perturbation_magnitude(state.beta, norm_theta,
+                                              norm_dy)
+        # nonzero entries per sample, over the global batch: every rank
+        # then takes the same beta step
         nnz = (grad3d != 0.0).sum().float()
+        rows = float(grad3d.shape[0] * grad3d.shape[1])
+        if is_initialized():
+            nnz, rows = all_reduce_(torch.stack([nnz,
+                                                 nnz.new_full((), rows)]))
         decay = cfg.grad_norm_decay_rate
         new_grad_norm = (decay * state.grad_norm
-                         + (1.0 - decay) * nnz / float(b * s))
+                         + (1.0 - decay) * nnz / rows)
         direction = torch.where(new_grad_norm < cfg.target_norm, 1.0, -1.0)
         beta_update = (cfg.beta_update_momentum * state.prev_update
                        + direction * cfg.beta_update_step)

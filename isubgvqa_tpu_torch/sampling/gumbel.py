@@ -33,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import shard_draw
 from .topk import topk_mask
 
 EPSILON = float(torch.finfo(torch.float32).tiny)
@@ -109,8 +110,10 @@ def gumbel_topk_sample(scores: torch.Tensor, cfg: GumbelSamplerConfig,
     local_k = min(cfg.k, n)
     repeat = cfg.train_ensemble if train else cfg.val_ensemble
     tiled = scores[None].expand(repeat, b, n).reshape(repeat * b, n)
-    if noise is None:
-        noise = draw_gumbel(tiled.shape, generator, scores.device)
+    if noise is None:          # [S, B, N]: a data-parallel rank's rows
+        noise = shard_draw(lambda s: draw_gumbel(
+            (s[0] * s[1], s[2]), generator, scores.device).view(s),
+            (repeat, b, n), axis=1)
     perturbed = tiled + noise.to(tiled.device, tiled.dtype).reshape(
         tiled.shape)
     khot = relaxed_topk(perturbed, local_k, cfg.tau, bounded=scores.is_cuda)

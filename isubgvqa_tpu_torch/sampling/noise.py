@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import shard_draw
 from .gumbel import draw_gumbel
 
 
@@ -49,12 +50,14 @@ def perturbation(shape, cfg, generator: Optional[torch.Generator], device,
     draw: the standard Gumbel draw (scaled here), or the Sum-of-Gamma
     sample itself."""
     if cfg.noise == "gumbel":
-        std = (draw_gumbel(shape, generator, device) if noise is None
+        std = (shard_draw(lambda s: draw_gumbel(s, generator, device), shape)
+               if noise is None
                else noise.to(device, torch.float32).reshape(shape))
         return cfg.noise_scale * std
     if cfg.noise == "sum_of_gamma":
         if noise is None:
-            return sum_of_gamma_noise(shape, float(max(cfg.k, 1)),
-                                      cfg.sog_iterations, generator, device)
+            return shard_draw(lambda s: sum_of_gamma_noise(
+                s, float(max(cfg.k, 1)), cfg.sog_iterations, generator,
+                device), shape)
         return noise.to(device, torch.float32).reshape(shape)
     raise ValueError(f"unknown noise {cfg.noise!r}")

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import shard_draw
 from .gumbel import draw_gumbel
 from .topk import topk_mask
 
@@ -156,7 +157,8 @@ def gumbel_topk_hard(scores: torch.Tensor, k: int, times_sampled: int,
     """Hard Gumbel-top-k samples ``[S, B, N]`` (``simple.py:111-117``);
     ``noise`` (a standard Gumbel draw ``[S, B, N]``) replaces the draw."""
     shape = (times_sampled,) + tuple(scores.shape)
-    g = (draw_gumbel(shape, generator, scores.device) if noise is None
+    g = (shard_draw(lambda s: draw_gumbel(s, generator, scores.device),
+                    shape, axis=1) if noise is None
          else noise.to(scores.device, scores.dtype).reshape(shape))
     return topk_mask((scores[None] + g).detach(), k)
 

@@ -6,8 +6,9 @@ The port of ``isubgvqa_tpu/serve.py:Predictor``::
     results = predictor.predict(["what is on the table?"], [scene_graph])
     results[0].answer, results[0].subgraph_nodes
 
-Tokenization and graph conversion run on the host; each size bucket's
-batch runs one eval forward on the device.  Requests are bucketed per
+Tokenization, graph conversion and the collate fill (C++ unless
+``ISUBGVQA_NATIVE=0``) run on the host; each size bucket's batch runs one
+eval forward on the device.  Requests are bucketed per
 call, results come back in input order, and every batch draws its
 Gumbel noise from a fresh generator seeded from ``(seed, batch_index)``
 (the JAX Predictor folds its key per batch the same way).
@@ -128,8 +129,11 @@ class Predictor:
                    q, {}, 0, f"img{i}")
             for i, (q, sg) in enumerate(zip(questions, scene_graphs))
         ]
-        collators = build_bucket_collators(self.cfg, self.tokenizer,
-                                           self.vocab, batch_size=batch_size)
+        # a store of its own for each request: a server's requests bring
+        # new graphs, which a shared store would keep forever
+        collators = build_bucket_collators(
+            self.cfg, self.tokenizer, self.vocab, batch_size=batch_size,
+            pin_memory=self.device.type == "cuda")
         results: List[Optional[Prediction]] = [None] * len(samples)
         self.last_batch_shapes = []
         for b_idx, (batch, meta) in enumerate(

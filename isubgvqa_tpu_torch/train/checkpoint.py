@@ -21,7 +21,9 @@ weights_only=True)`` opens it:
 
 A file is written under a temporary name and renamed over the old one
 (``os.replace``), so a run killed while writing never leaves a
-half-written checkpoint.
+half-written checkpoint.  In a data-parallel run only rank 0 writes (the
+JAX package's ``save_on_master``), every rank waits at a barrier after
+each save, and every rank loads on resume.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import Config
+from ..parallel.mesh import barrier, is_main_process
 from .state import TrainState
 
 AIMLE_FIELDS = ("beta", "grad_norm", "prev_update")
@@ -70,6 +73,13 @@ class CheckpointManager:
 
     def save(self, name: str, state: TrainState, epoch: int, cfg: Config,
              _payload: Optional[dict] = None):
+        """Write ``name`` on rank 0; every rank then meets at a barrier."""
+        if is_main_process():
+            self._write(name, state, epoch, cfg, _payload)
+        barrier()
+
+    def _write(self, name: str, state: TrainState, epoch: int, cfg: Config,
+               _payload: Optional[dict] = None):
         path = self._path(name)
         payload = _payload if _payload is not None else state_payload(
             state, epoch, cfg)
@@ -86,8 +96,9 @@ class CheckpointManager:
                     best_loss: float, best_acc: float) -> Tuple[float, float]:
         """Apply the reference's checkpoint policy; returns the updated
         ``(best_loss, best_acc)``.  The state crosses to the host once per
-        epoch, shared by every checkpoint written."""
-        payload = state_payload(state, epoch, cfg)
+        epoch, shared by every checkpoint written (on rank 0 only)."""
+        payload = (state_payload(state, epoch, cfg) if is_main_process()
+                   else None)
         if val_loss < best_loss:                      # train_loop.py:84-96
             best_loss = val_loss
             self.save("checkpoint_lowest_val_loss", state, epoch, cfg,

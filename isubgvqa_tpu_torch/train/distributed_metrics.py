@@ -1,4 +1,4 @@
-"""Metric aggregation and rich logging, in one process (the port of
+"""Cross-process metric aggregation and rich logging (the port of
 ``isubgvqa_tpu/train/distributed_metrics.py``, the reference's
 ``utils/misc.py`` helpers):
 
@@ -10,9 +10,10 @@
 * :class:`MetricLogger`: an iteration logger with ETA and the device's
   peak memory (``misc.py:157-262``).
 
-The port runs one process (ROADMAP item 13 adds the cross-process
-sums), so every collective is the identity, as in the JAX package with
-one process.
+The collectives run over the ``torch.distributed`` group of a
+data-parallel run (:mod:`~isubgvqa_tpu_torch.parallel`), where the JAX
+package gathers with ``process_allgather``; without a group each is the
+identity, as in the JAX package with one process.
 """
 
 from __future__ import annotations
@@ -24,6 +25,18 @@ from typing import Dict, Iterable, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import is_initialized, world_size
+
+
+def _sum_over_ranks(values) -> np.ndarray:
+    """Sum a small f64 vector over the ranks (on the card for NCCL)."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor(np.asarray(values, np.float64), device=dev)
+    dist.all_reduce(t)
+    return t.cpu().numpy()
 
 
 class SmoothedValue:
@@ -43,8 +56,12 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self):
-        """Sum count and total across processes (``misc.py:40-51``): the
-        identity in one process."""
+        """Sum count and total across processes (``misc.py:40-51``)."""
+        if not is_initialized():
+            return
+        count, total = _sum_over_ranks([self.count, self.total])
+        self.count = int(count)
+        self.total = float(total)
 
     @property
     def median(self) -> float:
@@ -76,13 +93,23 @@ def reduce_dict(input_dict: Dict[str, float], average: bool = True
                 ) -> Dict[str, float]:
     """Average (or sum) scalar metrics across processes
     (``misc.py:130-154``): a copy in one process."""
-    return dict(input_dict)
+    if not is_initialized():
+        return dict(input_dict)
+    keys = sorted(input_dict)
+    summed = _sum_over_ranks([input_dict[k] for k in keys])
+    if average:
+        summed = summed / world_size()
+    return dict(zip(keys, summed.tolist()))
 
 
 def all_gather_objects(obj) -> List:
-    """Gather picklable objects from all processes
+    """Gather picklable objects from all processes, in rank order
     (``misc.py:85-127``): ``[obj]`` in one process."""
-    return [obj]
+    if not is_initialized():
+        return [obj]
+    out: List = [None] * world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def device_memory_stats() -> str:

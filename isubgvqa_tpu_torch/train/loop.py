@@ -4,12 +4,18 @@ and ``validate_epoch``): pre-eval or evaluate-only, then per epoch
 train, validate and the three-checkpoint policy, printing the JAX
 package's lines.
 
-One process on one device (ROADMAP item 13 adds DDP).  Every random draw
+One process on one device, or one rank of a data-parallel run
+(:mod:`~isubgvqa_tpu_torch.parallel`, launched by ``torchrun``): each rank
+takes its chunk of every round of the sharded bucketed iterator, so the
+global batch is ``world_size x cfg.batch_size`` (the JAX package's
+``put_batch``), the step's sums cross the ranks
+(:func:`~.steps.make_train_step`), validation reduces its sums across
+them, and only rank 0 prints and writes checkpoints.  Every random draw
 is seeded from the config: a train step's from ``cfg.seed`` and the
 state's step (:func:`~.steps.step_generator`), a validation batch's noise
-from ``(cfg.seed, epoch + 1, batch index)``, the data order from ``cfg.seed +
-epoch``.  So a run resumed from a checkpoint continues on the trajectory
-of one that was never stopped.
+from ``(cfg.seed, epoch + 1, global batch index)``, the data order from
+``cfg.seed + epoch``.  So a run resumed from a checkpoint continues on
+the trajectory of one that was never stopped.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from ..data.batching import (group_multistep, iterate_batches,
                              iterate_batches_bucketed, prefetch)
 from ..data.build import DataBundle
 from ..models.build import resolve_device
+from ..parallel.mesh import is_main_process, rank, world_size
 from ..serve import batch_seed
 from ..utils.profiling import StepProfiler, trace
 from .checkpoint import CheckpointManager
@@ -40,15 +47,18 @@ logger = logging.getLogger(__name__)
 class Trainer:
     def __init__(self, cfg: Config, data: DataBundle,
                  state: Optional[TrainState] = None, device=None,
-                 shard_index: int = 0, num_shards: int = 1):
+                 shard_index: Optional[int] = None,
+                 num_shards: Optional[int] = None):
         """``state`` defaults to a fresh :func:`create_train_state` on
         ``device`` (the card unless the caller asks for another);
         ``shard_index`` / ``num_shards`` pick this trainer's share of
-        every split, as one rank of a data-parallel run would."""
+        every split, by default this process's rank and the group's
+        size (0 and 1 without a process group)."""
         self.cfg = cfg
         self.data = data
-        self.shard_index = shard_index
-        self.num_shards = num_shards
+        self.shard_index = rank() if shard_index is None else shard_index
+        self.num_shards = world_size() if num_shards is None else num_shards
+        self.main = is_main_process()
         # the schedule's epoch length (loop.py:50-51)
         steps_per_epoch = max(
             len(data.datasets["train"]) // max(cfg.batch_size, 1), 1)
@@ -135,11 +145,12 @@ class Trainer:
             batch_time.update(t / len(per_step), len(per_step))
             profiler.step()
             steps += len(per_step)
-            if steps // cfg.print_freq > shown:
+            if self.main and steps // cfg.print_freq > shown:
                 progress.display(steps - 1)
                 shown = steps // cfg.print_freq
-        progress.display(steps)
-        if profiler.enabled:
+        if self.main:
+            progress.display(steps)
+        if profiler.enabled and self.main:
             logger.info("step profile epoch %d: %s", epoch,
                         profiler.summary())
         return losses.avg
@@ -149,16 +160,18 @@ class Trainer:
         partition it exactly), under ``torch.no_grad()``: caches built under
         ``torch.inference_mode()`` would break the next backward.  Each
         batch's noise comes from a generator seeded from ``(cfg.seed,
-        epoch + 1, batch index)``.  The sums stay on the device and cross
-        to the host once, reduced across shards; they are kept in
-        ``val_totals``.  Returns ``(accuracy in %, mean loss)``."""
+        epoch + 1, global batch index)``, the index over every rank's
+        batches.  The sums stay on the device and cross to the host once,
+        reduced across the ranks; they are kept in ``val_totals``.
+        Returns ``(accuracy in %, mean loss)``."""
         cfg = self.cfg
         sums = torch.zeros(3, dtype=torch.float64, device=self.device)
         batches = self._iter_split(split, shuffle=False, seed=cfg.seed,
                                    drop_last=False, pad_shards=False)
         for b_idx, (batch, meta) in enumerate(batches):
             gen = torch.Generator(device=self.device).manual_seed(
-                batch_seed(cfg.seed, epoch + 1, b_idx))
+                batch_seed(cfg.seed, epoch + 1,
+                           b_idx * self.num_shards + self.shard_index))
             m = self.eval_step(self.state, batch, gen)
             sums += torch.stack([m["loss_sum"], m["correct"],
                                  m["count"]]).double()
@@ -169,9 +182,11 @@ class Trainer:
         count = max(totals["count"], 1.0)
         acc = totals["correct"] / count * 100.0
         loss = totals["loss_sum"] / count
-        msg = f"Val epoch [{epoch}] {split}: Acc@Short {acc:4.2f} Loss {loss:.2e}"
-        print(msg, flush=True)
-        logger.info(msg)
+        if self.main:
+            msg = (f"Val epoch [{epoch}] {split}: Acc@Short {acc:4.2f} "
+                   f"Loss {loss:.2e}")
+            print(msg, flush=True)
+            logger.info(msg)
         return acc, loss
 
     # ------------------------------------------------------------ run
@@ -194,8 +209,9 @@ class Trainer:
                 loss_lowest, top_accuracy = self.ckpt.save_policy(
                     self.state, epoch, cfg, val_loss, val_acc,
                     loss_lowest, top_accuracy)
-                print(f"Top validation accuracy so far was "
-                      f"{top_accuracy}", flush=True)
+                if self.main:
+                    print(f"Top validation accuracy so far was "
+                          f"{top_accuracy}", flush=True)
         return top_accuracy
 
     def resume(self, path: str, model_only: bool = False):

@@ -56,14 +56,18 @@ class Optimizer:
     def lr(self) -> float:
         return self.schedule(self.count)
 
+    def gradients(self) -> List[torch.Tensor]:
+        """Every parameter's ``.grad``; an unused parameter gets a zero
+        gradient."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in self.params]
+
     def step(self) -> torch.Tensor:
         """Apply one update from the parameters' gradients; returns the
         global norm of the raw gradients (f32, on their device)."""
-        grads = []
-        for p in self.params:
-            if p.grad is None:        # an unused parameter: a zero gradient
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
+        grads = self.gradients()
         norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
         finite = bool(torch.stack([torch.isfinite(g).all()

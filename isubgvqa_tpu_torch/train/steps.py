@@ -9,6 +9,14 @@ skip / Adam.  Padding samples carry ``sample_mask == 0`` and add neither loss
 nor metrics.  Every random draw of a step comes from one
 ``torch.Generator`` seeded from ``cfg.seed`` and the step (the JAX
 package folds the step into its key, ``steps.py:82``).
+
+In a data-parallel run (:mod:`~isubgvqa_tpu_torch.parallel`) a step is
+the JAX package's step on the global batch, the ranks' batches in rank
+order: each rank draws the global batch's noise and keeps its rows; the
+loss divides the rank's summed NLL by the count of real samples over
+every rank; the gradients and the step's metrics are summed over the
+ranks in one flat buffer before the optimizer's clip and non-finite
+check, so every rank takes the same update.
 """
 
 from __future__ import annotations
@@ -21,25 +29,46 @@ import torch.nn.functional as F
 from ..config import Config
 from ..data.batching import GraphBatch
 from ..models.isubgvqa import ISubGVQA
+from ..parallel.mesh import (all_reduce_, data_shard, is_initialized, rank,
+                             world_size)
 from .schedule import Optimizer
 from .state import TrainState
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       sample_mask: torch.Tensor) -> torch.Tensor:
-    """Mean CE over real samples, from an f32 log-softmax."""
+                       sample_mask: torch.Tensor,
+                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over real samples, from an f32 log-softmax; ``count``
+    (the real samples of the global batch) replaces the batch's own."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(1, labels.long()[:, None])[:, 0]
     mask = sample_mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = mask.sum() if count is None else count
+    return (nll * mask).sum() / torch.clamp(total, min=1.0)
 
 
-def _metrics(logits, labels, sample_mask, loss) -> dict:
+def _metrics(logits, labels, sample_mask, loss, count=None) -> dict:
     mask = sample_mask.float()
     correct = (logits.argmax(-1) == labels.long()).float() * mask
-    count = mask.sum()
-    return {"loss_sum": loss.detach() * count, "correct": correct.sum(),
-            "count": count}
+    local = mask.sum()
+    total = local if count is None else count
+    return {"loss_sum": loss.detach() * total, "correct": correct.sum(),
+            "count": local}
+
+
+def _all_reduce_step(optimizer: Optimizer, metrics: dict) -> None:
+    """Sum every gradient and the metrics' three sums over the ranks, in
+    one flat buffer, in place."""
+    grads = optimizer.gradients()
+    keys = ("loss_sum", "correct", "count")
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [torch.stack([metrics[k].float() for k in keys])])
+    all_reduce_(flat)
+    sizes = [g.numel() for g in grads] + [len(keys)]
+    for g, part in zip(grads, flat.split(sizes)):
+        g.copy_(part.view_as(g))
+    for k, v in zip(keys, flat[-len(keys):]):
+        metrics[k] = v
 
 
 def step_generator(cfg: Config, step: int, device) -> torch.Generator:
@@ -52,22 +81,28 @@ def step_generator(cfg: Config, step: int, device) -> torch.Generator:
 def make_train_step(model: ISubGVQA, optimizer: Optimizer, cfg: Config):
     """Returns ``train_step(state, batch, generator=None) -> (state,
     metrics)``; ``metrics`` holds ``loss_sum``, ``correct``, ``count`` and
-    ``grad_norm`` (of the raw gradients) as tensors.  The state is
-    updated in place."""
+    ``grad_norm`` (of the raw gradients) as tensors, over the global batch
+    in a data-parallel run.  The state is updated in place."""
     def train_step(state: TrainState, batch: GraphBatch,
                    generator: Optional[torch.Generator] = None):
         gen = generator or step_generator(cfg, state.step,
                                           batch.node_mask.device)
         model.zero_grad(set_to_none=True)
-        out = model(batch, generator=gen, train=True,
-                    aimle_states=state.aimle_states)
-        loss = cross_entropy_loss(out.logits, batch.labels, batch.sample_mask)
+        ddp = is_initialized()
+        with data_shard(rank(), world_size()):
+            out = model(batch, generator=gen, train=True,
+                        aimle_states=state.aimle_states)
+        count = (all_reduce_(batch.sample_mask.float().sum()) if ddp
+                 else None)
+        loss = cross_entropy_loss(out.logits, batch.labels,
+                                  batch.sample_mask, count)
         loss.backward()
-        grad_norm = optimizer.step()
-        state.step += 1
         metrics = _metrics(out.logits.detach(), batch.labels,
-                           batch.sample_mask, loss)
-        metrics["grad_norm"] = grad_norm
+                           batch.sample_mask, loss, count)
+        if ddp:
+            _all_reduce_step(optimizer, metrics)
+        metrics["grad_norm"] = optimizer.step()
+        state.step += 1
         return state, metrics
 
     return train_step

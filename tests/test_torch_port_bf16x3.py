@@ -40,6 +40,7 @@ from isubgvqa_tpu_torch.ops.text_kernel import DEC_KEYS, masks_at
 import test_torch_port_train_kernels as tk
 from test_torch_port_kernels import _graphs
 from test_torch_port_model import one_torch_thread  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 from test_torch_port_train_kernels import jit_grads  # noqa: F401
 
 

@@ -26,6 +26,7 @@ from isubgvqa_tpu_torch.data import SceneGraphVocab
 from isubgvqa_tpu_torch.train import create_train_state
 
 from test_torch_port_model import one_torch_thread  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 
 VOCAB, D, POS = 512, 64, 77
 

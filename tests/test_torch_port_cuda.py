@@ -1032,6 +1032,43 @@ def test_prefetch_to_cuda_matches_synchronous_copy(card):
 
 
 @pytest.mark.gpu
+def test_native_fill_feeds_prefetch_from_pinned_buffers(card, monkeypatch):
+    """Collators over a pinned store (the native C++ fill) hand
+    ``prefetch`` batches that already lie in pinned memory: it copies them
+    to the card with no ``pin_memory()`` copy of its own, and the card gets
+    what the Python fill's batches give (``ISUBGVQA_NATIVE=0``)."""
+    from isubgvqa_tpu_torch import bench
+    from isubgvqa_tpu_torch import data as tdata
+
+    cfg = bench._cfg("gumbel", 64, "bfloat16")
+    vocab, ds, colls = _bench_data(512, 64, cfg)
+    tok = next(iter(colls.values())).tokenizer
+    pinned = tdata.build_bucket_collators(cfg, tok, vocab, batch_size=64,
+                                          pin_memory=True)
+    assert all(c.native for c in pinned.values())
+    host = [b for b, _ in tdata.iterate_batches_bucketed(ds, pinned)]
+    assert len(host) >= 4 and all(b.is_pinned() for b in host)
+    pins = []
+    pin = tdata.GraphBatch.pin_memory
+    monkeypatch.setattr(tdata.GraphBatch, "pin_memory",
+                        lambda self: pins.append(1) or pin(self))
+    got = list(tdata.prefetch(tdata.iterate_batches_bucketed(ds, pinned),
+                              depth=3, device=DEVICE))
+    torch.cuda.synchronize()
+    assert pins == []
+    monkeypatch.setenv("ISUBGVQA_NATIVE", "0")
+    python = tdata.build_bucket_collators(cfg, tok, vocab, batch_size=64)
+    assert not any(c.native for c in python.values())
+    want = [b.to(DEVICE) for b, _ in
+            tdata.iterate_batches_bucketed(ds, python)]
+    assert len(got) == len(want)
+    for (g, _), w in zip(got, want):
+        for field in tdata.GraphBatch.__dataclass_fields__:
+            a, b = getattr(g, field), getattr(w, field)
+            assert a.is_cuda and torch.equal(a, b), field
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"],
                          ids=["f32", "bf16"])
 def test_bench_batch_2048_kernels_match_plain(card, dtype):

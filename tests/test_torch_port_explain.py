@@ -51,6 +51,7 @@ from isubgvqa_tpu_torch.train import Trainer, create_train_state
 from test_model import small_cfg
 from test_torch_port_model import (jax_weights, one_torch_thread,  # noqa: F401
                                    set_bn_stats)
+from test_torch_port_model import quick_xla  # noqa: F401
 
 DEV = 24                     # dev questions: 3 eval batches of 8
 

@@ -31,6 +31,7 @@ from isubgvqa_tpu_torch.ops import gemm as G
 from isubgvqa_tpu_torch.ops.gat_kernel import stacked_lr
 
 from test_torch_port_model import one_torch_thread  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 
 BF = torch.bfloat16
 TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}

@@ -33,6 +33,7 @@ from isubgvqa_tpu.ops.pallas.text_kernel import (fused_decoder_layer,
 from isubgvqa_tpu_torch import ops as tops
 
 from test_torch_port_model import one_torch_thread  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 
 OUT_ATOL = 1e-4
 ALPHA_ATOL = 1e-5

@@ -58,6 +58,24 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def quick_xla():
+    """XLA's cheap compile (``jax_disable_most_optimizations``: LLVM's
+    optimization passes off) for the JAX references of a port test
+    module, which compile small programs and run them once or a few
+    times: on the CPU the compiles cost far more CPU than the runs.  The
+    programs' HLO is the same; results move by f32 rounding only, far
+    inside every tolerance.  After the module the flag is restored and
+    JAX's caches are cleared, so no later test reuses an executable
+    compiled under it.  The other port test files with JAX references
+    import this fixture."""
+    before = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+    jax.clear_caches()
+
+
 def port_cfg(cfg):
     return TConfig.from_json(cfg.to_json())
 

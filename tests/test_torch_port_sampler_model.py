@@ -38,6 +38,8 @@ aimle's lambda in place of beta and its own difference); the test
 asserts that it does and prints both numbers.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -69,9 +71,10 @@ from isubgvqa_tpu_torch.train import create_train_state
 from isubgvqa_tpu_torch.train import make_train_step as t_train_step
 
 from test_model import small_cfg
-from test_torch_port_model import (jit_apply, one_torch_thread,  # noqa: F401
+from test_torch_port_model import (one_torch_thread,  # noqa: F401
                                    port_and_jax, port_cfg, shared_gumbel,
                                    to_port_batch)
+from test_torch_port_model import quick_xla  # noqa: F401
 from test_torch_port_train import _adam_mu, _flat, _port_tree
 
 SAMPLERS = ("imle", "aimle", "simple")
@@ -209,10 +212,53 @@ def patch_port_draws(mp, sampler, noise):
     mp.setattr(tsimple, "draw_gumbel", draw)
 
 
+@pytest.fixture(scope="module")
+def jax_programs(setup):
+    """Each sampler's JAX eval forward and ``make_train_step``, traced
+    here in turn under the sampler's patches (the shared draw is a
+    constant of the trace; the train step's taps are installed) and
+    compiled by a pool of threads meanwhile, so that XLA's compiles
+    overlap the tracing and each other.  Per sampler: the compiled
+    forward and step, the step's taps and its initial state."""
+    vocab, batch, tb, sd, params, stats, noise = setup
+    variables = {"params": params, "batch_stats": stats}
+    programs = {}
+    with ThreadPoolExecutor(3) as pool:
+        for sampler in SAMPLERS:
+            cfg = base_cfg(sampler)
+            model = build_model(cfg, vocab)
+            eval_states = make_aimle_states(cfg)
+            with pytest.MonkeyPatch.context() as mp:
+                patch_jax(mp, sampler, noise)
+                forward = jax.jit(lambda v, a, m=model, st=eval_states:
+                                  m.apply(v, *a, train=False, aimle_states=st,
+                                          rngs={"sampler":
+                                                jax.random.PRNGKey(0)})
+                                  ).lower(variables, (batch,))
+            taps = Taps()
+            optimizer = make_optimizer(cfg.lr, STEPS_PER_EPOCH)
+            states = ({MASKED: jaimle.init_aimle_state(
+                initial_beta=AIMLE_BETA)} if sampler == "aimle" else None)
+            state = TrainState(step=jnp.asarray(0, jnp.int32), params=params,
+                               opt_state=optimizer.init(params),
+                               batch_stats=stats, aimle_states=states)
+            with pytest.MonkeyPatch.context() as mp:
+                patch_jax(mp, sampler, noise)
+                taps.jax(mp)
+                step = jax.jit(make_train_step(model, optimizer, cfg)).lower(
+                    state, batch, jax.random.PRNGKey(0))
+            programs[sampler] = dict(forward=pool.submit(forward.compile),
+                                     step=pool.submit(step.compile),
+                                     taps=taps, state=state)
+        return {s: dict(p, forward=p["forward"].result(),
+                        step=p["step"].result())
+                for s, p in programs.items()}
+
+
 # ------------------------------------------------------------------ eval
 
 @pytest.mark.parametrize("sampler", SAMPLERS)
-def test_eval_forward_matches_jax(setup, sampler, monkeypatch):
+def test_eval_forward_matches_jax(setup, jax_programs, sampler):
     """imle's eval is deterministic (input temperature 0), aimle's and
     simple's draw noise; the eval forward leaves aimle's state alone."""
     vocab, batch, tb, sd, params, stats, noise = setup
@@ -225,11 +271,8 @@ def test_eval_forward_matches_jax(setup, sampler, monkeypatch):
                    aimle_states=states)
         again = tm(tb, noise=torch.from_numpy(noise_for(sampler, -noise)),
                    aimle_states=states)
-    patch_jax(monkeypatch, sampler, noise)
-    out_j = jit_apply(build_model(cfg, vocab),
-                      {"params": params, "batch_stats": stats}, batch,
-                      train=False, aimle_states=make_aimle_states(cfg),
-                      rngs={"sampler": jax.random.PRNGKey(0)})
+    out_j = jax_programs[sampler]["forward"](
+        {"params": params, "batch_stats": stats}, (batch,))
     np.testing.assert_allclose(out_t.logits.numpy(), np.asarray(out_j.logits),
                                rtol=0, atol=1e-3)
     nm_t, nm_j = out_t.node_mask.numpy(), np.asarray(out_j.node_mask)
@@ -254,41 +297,29 @@ def test_eval_forward_matches_jax(setup, sampler, monkeypatch):
 _JAX_RUNS = {}
 
 
-def jax_run(setup, sampler, n_steps):
-    """``make_train_step`` jitted, ``n_steps`` steps on the same batch and
-    noise: losses, grad norms, the first step's gradients (from Adam's
-    first moment after one update from zero), the taps of each step and
-    aimle's state after each."""
+def jax_run(setup, jax_programs, sampler, n_steps):
+    """``make_train_step`` jitted (:func:`jax_programs`), ``n_steps`` steps
+    on the same batch and noise: losses, grad norms, the first step's
+    gradients (from Adam's first moment after one update from zero), the
+    taps of each step and aimle's state after each."""
     if sampler in _JAX_RUNS:
         return _JAX_RUNS[sampler]
     vocab, batch, tb, sd, params, stats, noise = setup
     cfg = base_cfg(sampler)
-    model = build_model(cfg, vocab)
-    taps = Taps()
-    mp = pytest.MonkeyPatch()
-    try:
-        patch_jax(mp, sampler, noise)
-        taps.jax(mp)
-        optimizer = make_optimizer(cfg.lr, STEPS_PER_EPOCH)
-        states = ({MASKED: jaimle.init_aimle_state(initial_beta=AIMLE_BETA)}
-                  if sampler == "aimle" else None)
-        state = TrainState(step=jnp.asarray(0, jnp.int32), params=params,
-                           opt_state=optimizer.init(params),
-                           batch_stats=stats, aimle_states=states)
-        step = jax.jit(make_train_step(model, optimizer, cfg))
-        losses, norms, aimle = [], [], []
-        for i in range(n_steps):
-            state, m = step(state, batch, jax.random.PRNGKey(0))
-            losses.append(float(m["loss_sum"] / m["count"]))
-            norms.append(float(m["grad_norm"]))
-            if states is not None:
-                aimle.append(jax.device_get(state.aimle_states[MASKED]))
-            if i == 0:
-                clip = min(1.0, cfg.grad_clip_norm / norms[0])
-                g = _adam_mu(state) / (1.0 - 0.9) / clip
-                grads0 = jax.flatten_util.ravel_pytree(params)[1](g)
-    finally:
-        mp.undo()
+    prog = jax_programs[sampler]
+    step, taps, state = prog["step"], prog["taps"], prog["state"]
+    losses, norms, aimle = [], [], []
+    for i in range(n_steps):
+        state, m = step(state, batch, jax.random.PRNGKey(0))
+        losses.append(float(m["loss_sum"] / m["count"]))
+        norms.append(float(m["grad_norm"]))
+        if state.aimle_states is not None:
+            aimle.append(jax.device_get(state.aimle_states[MASKED]))
+        if i == 0:
+            clip = min(1.0, cfg.grad_clip_norm / norms[0])
+            g = _adam_mu(state) / (1.0 - 0.9) / clip
+            grads0 = jax.flatten_util.ravel_pytree(params)[1](g)
+    jax.effects_barrier()                   # the taps' callbacks have run
     _JAX_RUNS[sampler] = dict(losses=losses, norms=norms, grads0=grads0,
                               taps=taps.steps, aimle=aimle)
     return _JAX_RUNS[sampler]
@@ -345,9 +376,10 @@ def smallest_margin(targets):
 
 
 @pytest.mark.parametrize("sampler", SAMPLERS)
-def test_train_step_matches_jax(setup, sampler, monkeypatch, capsys):
+def test_train_step_matches_jax(setup, jax_programs, sampler, monkeypatch,
+                                capsys):
     n_steps = 3 if sampler == "aimle" else 1
-    ref = jax_run(setup, sampler, n_steps)
+    ref = jax_run(setup, jax_programs, sampler, n_steps)
     got = port_run(setup, sampler, n_steps, monkeypatch)
     noise = setup[-1]
     np.testing.assert_allclose(got["losses"][0], ref["losses"][0], rtol=1e-4)

@@ -37,6 +37,7 @@ from isubgvqa_tpu_torch.sampling import simple as tsimple
 from isubgvqa_tpu_torch.sampling import topk_mask
 
 from test_torch_port_model import one_torch_thread, shared_gumbel  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 
 B, N, K = 5, 12, 3
 TOL = 1e-5

@@ -21,6 +21,7 @@ from isubgvqa_tpu_torch.sampling import gumbel as tgumbel
 
 from test_model import small_cfg
 from test_torch_port_model import jax_weights, one_torch_thread  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 
 
 def _cfg(**kw):

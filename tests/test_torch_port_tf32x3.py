@@ -27,6 +27,7 @@ from isubgvqa_tpu_torch.ops import gemm
 
 import test_torch_port_train_kernels as tk
 from test_torch_port_model import one_torch_thread  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 from test_torch_port_train_kernels import gat_case, jit_grads  # noqa: F401
 
 

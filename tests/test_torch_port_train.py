@@ -25,6 +25,7 @@ near-sign updates, so parameter deltas are the wrong measure; see
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -52,6 +53,7 @@ from test_model import small_cfg
 from test_torch_port_model import (jax_weights, one_torch_thread,  # noqa: F401
                                    port_and_jax, port_cfg, shared_gumbel,
                                    to_port_batch)
+from test_torch_port_model import quick_xla  # noqa: F401
 
 STEPS_PER_EPOCH = 4
 N_STEPS = 3
@@ -112,35 +114,36 @@ def jax_run(setup):
     forward), then 3 steps of ``make_train_step``.  The first step's
     gradients come out of Adam's first moment after one update from
     zero, ``mu = (1 - b1) * clip(g)``: one compile of the step instead of
-    a second one of ``jax.grad``."""
+    a second one of ``jax.grad``.  Both programs are traced under the
+    shared draw and compiled side by side on two threads."""
     cfg, vocab, batch, tb, sd, params, stats, noise = setup
     model = build_model(cfg, vocab)
-    mp = pytest.MonkeyPatch()
-    try:
+    optimizer = make_optimizer(cfg.lr, STEPS_PER_EPOCH)
+    state = TrainState(step=jnp.asarray(0, jnp.int32), params=params,
+                       opt_state=optimizer.init(params),
+                       batch_stats=stats, aimle_states=None)
+    rngs = {"dropout": jax.random.PRNGKey(1),
+            "sampler": jax.random.PRNGKey(2)}
+    with pytest.MonkeyPatch.context() as mp:
         shared_gumbel(mp, noise)
-        rngs = {"dropout": jax.random.PRNGKey(1),
-                "sampler": jax.random.PRNGKey(2)}
-        out0, _ = jax.jit(lambda p: model.apply(
+        forward = jax.jit(lambda p: model.apply(
             {"params": p, "batch_stats": stats}, batch, train=True,
-            rngs=rngs, mutable=["batch_stats"]))(params)
-        loss0 = cross_entropy_loss(out0.logits, batch.labels,
-                                   batch.sample_mask)
-        optimizer = make_optimizer(cfg.lr, STEPS_PER_EPOCH)
-        state = TrainState(step=jnp.asarray(0, jnp.int32), params=params,
-                           opt_state=optimizer.init(params),
-                           batch_stats=stats, aimle_states=None)
-        step = jax.jit(make_train_step(model, optimizer, cfg))
-        losses, norms = [], []
-        for i in range(N_STEPS):
-            state, m = step(state, batch, jax.random.PRNGKey(0))
-            losses.append(float(m["loss_sum"] / m["count"]))
-            norms.append(float(m["grad_norm"]))
-            if i == 0:
-                clip = min(1.0, cfg.grad_clip_norm / norms[0])
-                g = _adam_mu(state) / (1.0 - 0.9) / clip
-                grads0 = jax.flatten_util.ravel_pytree(params)[1](g)
-    finally:
-        mp.undo()
+            rngs=rngs, mutable=["batch_stats"])).lower(params)
+        step = jax.jit(make_train_step(model, optimizer, cfg)).lower(
+            state, batch, jax.random.PRNGKey(0))
+    with ThreadPoolExecutor(2) as pool:
+        forward, step = pool.map(lambda low: low.compile(), (forward, step))
+    out0, _ = forward(params)
+    loss0 = cross_entropy_loss(out0.logits, batch.labels, batch.sample_mask)
+    losses, norms = [], []
+    for i in range(N_STEPS):
+        state, m = step(state, batch, jax.random.PRNGKey(0))
+        losses.append(float(m["loss_sum"] / m["count"]))
+        norms.append(float(m["grad_norm"]))
+        if i == 0:
+            clip = min(1.0, cfg.grad_clip_norm / norms[0])
+            g = _adam_mu(state) / (1.0 - 0.9) / clip
+            grads0 = jax.flatten_util.ravel_pytree(params)[1](g)
     return dict(loss0=float(loss0), mask0=np.asarray(out0.node_mask),
                 grads0=grads0, losses=losses, norms=norms, state=state)
 

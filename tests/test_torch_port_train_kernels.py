@@ -43,6 +43,7 @@ from isubgvqa_tpu_torch.train.schedule import make_optimizer
 from test_torch_port_kernels import (D, FF, H, _graphs, _ln_w, _mha_w,
                                      _port_ffn_ln, _port_mha, _t)
 from test_torch_port_model import one_torch_thread  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 
 OUT_ATOL = 1e-4
 GRAD_RTOL = 1e-4

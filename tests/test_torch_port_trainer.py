@@ -50,6 +50,7 @@ from isubgvqa_tpu_torch.train.state import TrainState, create_train_state
 from test_model import small_cfg
 from test_torch_port_data import _assert_same_batch
 from test_torch_port_model import one_torch_thread  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 
 # ------------------------------------------------------------ text, config
 
@@ -374,12 +375,25 @@ def test_run_token_coo_entry_prints_the_five_lines(trained, capsys):
     (["--use_topk", "0"], "item 15"),
 ])
 def test_cli_refuses_what_the_port_does_not_run(tmp_path, flags, item):
-    """More than one process (item 13) raises; the config variants
-    (item 15) are ported and pass the CLI's check."""
+    """Item 13: tensor parallelism and a ``num_data_shards`` other than
+    the process group's size raise; ``num_data_shards`` equal to it (a
+    torchrun world of 2 here) passes.  The config variants (item 15) are
+    ported and pass the CLI's check."""
     argv = ["--device", "cpu", "--output_dir", str(tmp_path), *flags]
     if item == "item 13":
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(argv)
+        cfg = cli.config_from_args(cli.get_argparser().parse_args(argv))
+        if cfg.model_parallel > 1:
+            with pytest.raises(NotImplementedError, match="tensor"):
+                cli.main(argv)
+            mismatched = dataclasses.replace(cfg, model_parallel=1,
+                                             num_data_shards=2)
+            with pytest.raises(NotImplementedError, match="has 1 rank"):
+                cli.check_cli_supported(mismatched, world=1)
+        else:
+            assert cfg.num_data_shards == 2
+            cli.check_cli_supported(cfg, world=2)
+            cli.check_cli_supported(dataclasses.replace(
+                cfg, num_data_shards=None), world=2)
         return
     cfg = cli.config_from_args(cli.get_argparser().parse_args(argv))
     assert cfg != cli.config_from_args(cli.get_argparser().parse_args(

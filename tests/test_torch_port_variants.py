@@ -67,6 +67,7 @@ from test_torch_port_kernels import (ALPHA_ATOL, OUT_ATOL, _gat_case,
                                      _port_gat_params, _t)
 from test_torch_port_model import (one_torch_thread,  # noqa: F401
                                    port_cfg, set_bn_stats, to_port_batch)
+from test_torch_port_model import quick_xla  # noqa: F401
 
 ATOL = 1e-4
 K = 3
@@ -407,3 +408,53 @@ def test_forward_flops_count_the_variants_products(data, variant):
         model(tb, generator=torch.Generator().manual_seed(0))
     assert fc.get_total_flops() == flops.forward_flops(
         cfg, *flops.batch_shape(tb))
+
+
+def test_bf16_stage0_bypass_stays_f32_to_the_batchnorm(data):
+    """The explainer's stage-0 bypass in a bf16 model: as in the JAX
+    package (``scene_graph_encoder.py:97-112``) the f32 token sum, the
+    bbox input and their concatenation stay f32 up to the reduction's
+    BatchNorm (running statistics, eval).  Its output over the token sum
+    agrees with the JAX encoder's within f32 rounding (1e-5; a bf16
+    rounding of the bypass moves it by ~1e-2); over the 32 bbox features,
+    which both packages compute through bf16 Dense layers, within 1e-2
+    (a bf16 rounding of their order 1 values is 4e-3)."""
+    from isubgvqa_tpu.models.scene_graph_encoder import SceneGraphEncoder
+
+    vocab, batch, tb = data
+    cfg = variant_cfg("base")
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    tm, params, stats = port_model(cfg)
+    tm16 = tbuild(port_cfg(cfg16), tdata.SceneGraphVocab.synthetic(),
+                  device="cpu", state_dict=tm.state_dict())
+    sge = tm16.scene_graph_encoder
+    emb = sge.sg_vocab_embedding.weight.detach()
+    bypass = emb[tb.node_tokens.long()].float().sum(-2)          # f32
+    got = {}
+    hook = sge.feat_reduc[0].register_forward_hook(
+        lambda mod, args, out: got.update(x=args[0], out=out))
+    try:
+        with torch.no_grad():
+            sge(tb, torch.bfloat16, expl_x_embed_sum=bypass)
+    finally:
+        hook.remove()
+
+    sg = params["scene_graph_encoder"]
+    enc = SceneGraphEncoder(
+        sg_vocab_size=sg["sg_vocab_embedding"]["embedding"].shape[0],
+        hidden_dim=cfg.general_hidden_dim, sg_emb_dim=cfg.general_hidden_dim,
+        use_pallas=False, dtype=jnp.bfloat16)
+    _, inter = jax.jit(lambda v, b, x: enc.apply(
+        v, b, deterministic=True, expl_x_embed_sum=x,
+        capture_intermediates=True, mutable=["intermediates"]))(
+        {"params": sg, "batch_stats": stats["scene_graph_encoder"]}, batch,
+        jnp.asarray(bypass.numpy()))
+    want = np.asarray(inter["intermediates"]["reduc_bn"]["__call__"][0])
+    assert want.dtype == np.float32
+    assert got["x"].dtype == got["out"].dtype == torch.float32
+    c = cfg.general_hidden_dim
+    out = got["out"].numpy()
+    np.testing.assert_allclose(out[..., :c], want[..., :c], rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(out[..., c:], want[..., c:], rtol=0,
+                               atol=1e-2)

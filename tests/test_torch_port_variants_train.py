@@ -58,6 +58,7 @@ from isubgvqa_tpu_torch.train import make_train_step as t_train_step
 from test_torch_port_explain import DEV, bundle, dev_logits
 from test_torch_port_kernels import _graphs, _t
 from test_torch_port_model import one_torch_thread  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 from test_torch_port_model import port_cfg, set_bn_stats
 from test_torch_port_train import _adam_mu, _flat
 from test_torch_port_train_kernels import _jax_attb, leaves

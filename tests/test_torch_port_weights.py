@@ -26,6 +26,7 @@ from isubgvqa_tpu_torch.models.build import build_model as tbuild
 
 from test_model import small_cfg
 from test_torch_port_model import one_torch_thread  # noqa: F401
+from test_torch_port_model import quick_xla  # noqa: F401
 
 
 def _cfg():
