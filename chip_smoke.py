@@ -147,8 +147,31 @@ script exits non-zero):
     isubgvqa_tpu_torch.cli`` with the same flags (NCCL), whose metric
     lines and checkpoint equal the run without a group's (bitwise, or
     within ``DDP_ATOL``), beside a second run without a group;
+15. checkpoints (the port's half of the JAX -> port bridge; this
+    machine has no JAX): the seeded full-width training model's state
+    through ``convert.state_dict_to_jax`` and, with seeded Adam moments,
+    count 37 and step 41, through ``convert.train_payload_from_jax`` into
+    a file beside its meta; ``Trainer.resume`` on the card reads every
+    weight, moment and count back bitwise, then three steps at 256
+    (finite, the count 37 to 40, each step's ms); ``Predictor.
+    from_checkpoint`` of the file serves 64 questions bitwise equal to a
+    ``Predictor`` of the source state dict; the same weights as an
+    upstream ``.pth``, the answer head's bias lifted at the four most
+    frequent dev answers so that the report's metrics count some right
+    answers, load
+    with no config (derived from its ``args``, equal to the source's
+    field by field) and go through ``python -m
+    isubgvqa_tpu_torch.parity_report --synthetic`` at B = 2048 in f32,
+    through the kernels and through the plain versions (logits within
+    1e-5, masks equal, every metric equal, the accuracy above 0 and a
+    co-occurrence metric finite; both reports' metrics and wall
+    times); last every library op (segment, dense, dense-graph, top-k
+    ratio, rewiring, the flat node -> edge mask forward and backward) on
+    the card against the same call on the CPU at B = 256, N = 128,
+    E = 384 (masks, indices and integers exact, f32 within 1e-6 of the
+    output's scale); the launch counts of its paths;
 then the per-kernel JSON line (all eight kernels, with the bench's
-launches, phase 11's, 12's, 13's and 14's among them, beside the
+launches, phase 11's, 12's, 13's, 14's and 15's among them, beside the
 main path's, and #1's and #5's times at the variants' shapes) and the
 final ``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
 the serving model is built.
@@ -2971,6 +2994,445 @@ def phase_native_ddp(smi):
     return counts
 
 
+# Phase 15: checkpoints across the packages (the port's half: the machine
+# with the card has no JAX), the upstream .pth, the port's parity report
+# and the library ops.
+CKPT_COUNT, CKPT_STEP = 37, 41   # the exported state's Adam count and step
+CKPT_STEPS = 3                   # resumed steps at TRAIN_B
+CKPT_TRAIN = 1024                # the resuming Trainer's training questions
+PARITY_B = 2048                  # the parity report's batch
+PARITY_DEV = 2048                # its dev questions (synthetic_size / 4)
+PARITY_LIFTED = 4                # dev answers the .pth's answer bias lifts
+# f32 logits, kernels against plain versions over the report's batches:
+# the whole forward's bound of phase 13 (recorded: 1e-7 to 5e-7)
+PARITY_F32_TOL = 1e-5
+LIB_B, LIB_N, LIB_E = 256, 128, 384
+LIB_REL = 1e-6                   # f32 library op, card against CPU
+
+
+def like_tree(tree, fn):
+    """A nested dict of arrays with ``fn`` applied to each leaf."""
+    return {k: like_tree(v, fn) if isinstance(v, dict) else fn(np.asarray(v))
+            for k, v in tree.items()}
+
+
+def library_cases(rng):
+    """The library ops (``ops/segment.py``, ``ops/dense.py``,
+    ``ops/dense_graph.py``, ``ops/topk_ratio.py``, ``sampling/rewiring.py``
+    and the flat ``node_mask_to_edge_mask``) at B = 256 graphs of N = 128
+    nodes and E = 384 edges: ``(name, fn, inputs)`` with CPU inputs, where
+    ``fn(*inputs)`` returns a tensor or a tuple of them.  The flat segment
+    ids include ids out of range, which the reductions drop."""
+    import torch
+    from isubgvqa_tpu_torch import ops, sampling
+    from isubgvqa_tpu_torch.ops import dense_graph as DG
+    from isubgvqa_tpu_torch.ops import segment as SEG
+    from isubgvqa_tpu_torch.ops.topk_ratio import topk_per_graph
+
+    b, n, e = LIB_B, LIB_N, LIB_E
+    t = torch.from_numpy
+    sizes = rng.integers(n // 4, n + 1, b)
+    node_mask = np.arange(n)[None] < sizes[:, None]                # [B, N]
+    edge_mask = rng.random((b, e)) < 0.85
+    src = (rng.random((b, e)) * sizes[:, None]).astype(np.int64)
+    dst = (rng.random((b, e)) * sizes[:, None]).astype(np.int64)
+    x = rng.standard_normal((b, n, 64)).astype(np.float32)
+    scores = np.round(rng.standard_normal((b, n)), 1).astype(np.float32)
+    logits = rng.standard_normal((b, e, 4)).astype(np.float32)
+    # the flat layout: nodes b * n + i, edges into them, some ids out
+    flat_dst = (dst + np.arange(b)[:, None] * n).reshape(-1)
+    flat_src = (src + np.arange(b)[:, None] * n).reshape(-1)
+    flat_dst[::997] = -1
+    flat_dst[5::991] = b * n + 3
+    graph_ids = np.repeat(np.arange(b), n)
+    pos = np.tile(np.arange(n), b)
+    oh_dst = ((dst[..., None] == np.arange(n)) * edge_mask[..., None]
+              ).astype(np.float32)
+    msg = rng.standard_normal((b, e, 64)).astype(np.float32)
+    w, bias, ms = (rng.standard_normal(64).astype(np.float32)
+                   for _ in range(3))
+    em_flat = t(edge_mask.reshape(-1))
+    nm_flat = t(node_mask.reshape(-1))
+    xf = t(x.reshape(b * n, 64))
+    ef = t(logits.reshape(b * e, 4))
+
+    def node_edge(mask, s, d):
+        mask = mask.clone().requires_grad_(True)
+        out = sampling.node_mask_to_edge_mask(mask, s, d, b * n)
+        out.backward(torch.ones_like(out))
+        return out.detach(), mask.grad
+
+    seg_args = (ef, t(flat_dst), b * n, em_flat)
+    return [
+        ("segment_sum", SEG.segment_sum, seg_args),
+        ("segment_count", SEG.segment_count, (t(flat_dst), b * n, em_flat)),
+        ("segment_mean", SEG.segment_mean, seg_args),
+        ("segment_max", SEG.segment_max, seg_args),
+        ("segment_min", SEG.segment_min, seg_args),
+        ("segment_softmax", SEG.segment_softmax, seg_args),
+        ("segment_normalize", SEG.segment_normalize,
+         (xf, t(graph_ids), b, nm_flat, t(ms))),
+        ("to_dense_batch", ops.to_dense_batch,
+         (xf[nm_flat], t(graph_ids)[nm_flat], t(pos)[nm_flat], b, n)),
+        ("from_dense_batch", ops.from_dense_batch,
+         (t(x), t(graph_ids), t(pos), nm_flat)),
+        ("dense_topk_mask", ops.dense_topk_mask, (t(scores), 3)),
+        ("edge_onehot", DG.edge_onehot, (t(dst), n, t(edge_mask))),
+        ("gather_nodes", DG.gather_nodes, (t(x), t(src))),
+        ("gather_nodes_onehot", lambda a, p: DG.gather_nodes(a, p, "onehot"),
+         (t(x), t(src))),
+        ("gather_nodes_oh", DG.gather_nodes_oh, (t(x), t(oh_dst))),
+        ("aggregate_edges", DG.aggregate_edges, (t(msg), t(oh_dst))),
+        ("edge_softmax", DG.edge_softmax,
+         (t(logits), t(dst), t(oh_dst), t(edge_mask))),
+        ("node_softmax", DG.node_softmax, (t(scores), t(node_mask))),
+        ("masked_mean", DG.masked_mean, (t(x), t(node_mask))),
+        ("graph_norm_dense", DG.graph_norm_dense,
+         (t(x), t(node_mask), t(w), t(bias), t(ms))),
+        ("topk_per_graph_ratio", topk_per_graph, (t(scores), 0.5,
+                                                  t(node_mask))),
+        ("topk_per_graph_k", topk_per_graph, (t(scores), 3, t(node_mask))),
+        ("rewire_global_directed", sampling.rewire_global_directed,
+         (t(scores[:, :, None, None] + scores[:, None, :, None]), 3,
+          t(rng.random((b, n, n)) < 0.05))),
+        ("rewire_global_undirected", sampling.rewire_global_undirected,
+         (t(scores[:, :, None, None] * scores[:, None, :, None]), 3, None)),
+        ("masked_softmax", sampling.masked_softmax,
+         (t(scores), t(node_mask.astype(np.float32)))),
+        ("weighted_cross_entropy", sampling.weighted_cross_entropy,
+         (t(rng.standard_normal((b, 1842)).astype(np.float32)),
+          t(rng.integers(0, 1842, b)), t(rng.random(b).astype(np.float32)))),
+        ("batched_edge_index_to_batched_adj",
+         sampling.batched_edge_index_to_batched_adj,
+         (t(src), t(dst), t(edge_mask), t(node_mask))),
+        ("non_merge_coalesce", sampling.non_merge_coalesce,
+         (t(src.astype(np.int32)), t(dst.astype(np.int32)), t(msg[..., :2]),
+          t(logits[..., 0]), n, t(edge_mask))),
+        ("batch_repeat_edge_index", sampling.batch_repeat_edge_index,
+         (t(np.stack([flat_src[:e], flat_dst[:e]]).clip(0)), b * n, 3)),
+        ("node_mask_to_edge_mask", node_edge,
+         (t(rng.random((b * n, 1)).astype(np.float32)), t(flat_src),
+          t(flat_dst))),
+    ]
+
+
+def same_outputs(name, got, want):
+    """Card outputs against CPU outputs: masks, indices and integers
+    exact, floats within ``LIB_REL`` of the output's scale (the sentinel
+    1e30 of an empty segment left out of the scale).  Returns the worst
+    relative error."""
+    import torch
+
+    if isinstance(want, (tuple, list)):
+        return max([same_outputs(name, g, w) for g, w in zip(got, want)
+                    if w is not None], default=0.0)
+    got = got.cpu()
+    if not want.is_floating_point() or want.dtype == torch.bfloat16:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: the card's output differs")
+        return 0.0
+    finite = want.abs() < 1e29
+    if not torch.equal(finite, got.abs() < 1e29):
+        raise AssertionError(f"{name}: sentinels differ")
+    scale = max(want[finite].abs().max().item() if finite.any() else 0.0,
+                torch.finfo(torch.float32).tiny)
+    err = (got[finite] - want[finite]).abs().max().item() \
+        if finite.any() else 0.0
+    if not err <= LIB_REL * scale:
+        raise AssertionError(f"{name}: {err:.3g} from the CPU's, scale "
+                             f"{scale:.3g}")
+    return err / scale
+
+
+def logits_hook(records):
+    """A global forward hook that keeps each whole-model forward's f32
+    logits and node mask (on the host) in ``records``; returns its
+    handle."""
+    import torch
+    from isubgvqa_tpu_torch.models.isubgvqa import ISubGVQA
+
+    def hook(module, args, out):
+        if isinstance(module, ISubGVQA):
+            records.append((out.logits.detach().float().cpu(),
+                            out.node_mask.detach().cpu()))
+
+    return torch.nn.modules.module.register_module_forward_hook(hook)
+
+
+def phase_checkpoints(smi):
+    """Phase 15: checkpoints across the two packages, on the port's side
+    (this machine has no JAX: the orbax half runs in the CPU tests).
+    (a) The seeded full-width training model's state through
+    ``convert.state_dict_to_jax``, with seeded non-zero Adam moments,
+    count 37, step 41, through ``convert.train_payload_from_jax`` into a
+    file and its meta; ``Trainer.resume`` reads every weight, moment and
+    count back bitwise; three steps at 256 (kernels #5-#8), finite, Adam's
+    count 37 to 40.  (b) ``Predictor.from_checkpoint`` of that file
+    serves 64 questions with logits bitwise equal to a ``Predictor`` of
+    the source state dict (kernels #1-#4).  (c) The same weights as an
+    upstream ``.pth`` (``module.`` prefixes, an ``argparse.Namespace``
+    ``args``, ``epoch``), the answer head's bias lifted by 5 at the
+    ``PARITY_LIFTED`` most frequent dev answers (random weights answer no
+    dev question right, which leaves the co-occurrence metrics NaN):
+    ``Predictor.from_checkpoint`` with no config derives the
+    source's config field by field; ``python -m
+    isubgvqa_tpu_torch.parity_report --synthetic`` on it at B = 2048 in
+    f32 through the kernels and through the plain versions: logits
+    within ``PARITY_F32_TOL``, the same masks, every metric the same
+    (NaN where both are), the accuracy above 0 and a co-occurrence metric
+    finite.  (d) Every
+    library op on the card against the same call on the CPU.  Returns
+    the launch counts of (a)-(c), each counted from 0."""
+    import argparse
+    import collections
+
+    import torch
+    from isubgvqa_tpu_torch import convert, ops, parity_report
+    from isubgvqa_tpu_torch.data import (AnswerMap, SceneGraphVocab,
+                                         SyntheticGQA, build_bucket_collators,
+                                         build_datasets,
+                                         iterate_batches_bucketed)
+    from isubgvqa_tpu_torch.serve import Predictor
+    from isubgvqa_tpu_torch.train import create_train_state
+    from isubgvqa_tpu_torch.train.checkpoint import write_checkpoint
+    from isubgvqa_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    counts = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # (a) the train state exported and resumed
+        cfg = dataclasses.replace(train_config(), synthetic=True,
+                                  synthetic_size=CKPT_TRAIN,
+                                  synthetic_shape_mix="gqa",
+                                  output_dir=os.path.join(root, "out"))
+        data = build_datasets(cfg, pin_memory=True)
+        cfg = dataclasses.replace(cfg, num_answers=len(data.answers))
+        spe = max(len(data.datasets["train"]) // cfg.batch_size, 1)
+        source = create_train_state(cfg, data.vocab, spe, device="cuda")
+        sd = {k: v.detach().float().cpu()
+              for k, v in source.model.state_dict().items()}
+        del source
+        t0 = time.perf_counter()
+        params, stats = convert.state_dict_to_jax(sd)
+        rng = np.random.default_rng(15)
+        mu = like_tree(params, lambda a: (
+            1e-3 * rng.standard_normal(a.shape)).astype(np.float32))
+        nu = like_tree(params, lambda a: (
+            1e-6 * rng.standard_normal(a.shape) ** 2).astype(np.float32))
+        payload = convert.train_payload_from_jax(
+            params, stats, cfg.to_json(), mu=mu, nu=nu, count=CKPT_COUNT,
+            notfinite_count=0, step=CKPT_STEP, epoch=3)
+        path = os.path.join(root, "exported")
+        write_checkpoint(payload, path)
+        export_s = time.perf_counter() - t0
+        mu_sd = convert.state_dict_from_jax(mu, stats)
+        nu_sd = convert.state_dict_from_jax(nu, stats)
+        del params, stats, mu, nu, payload
+        trainer = Trainer(cfg, data, device="cuda")
+        t0 = time.perf_counter()
+        epoch, _ = trainer.resume(path)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        st, opt = trainer.state, trainer.state.optimizer
+        bad = [k for k, v in st.model.state_dict().items()
+               if not torch.equal(v.cpu(), sd[k])]
+        for n, p in st.model.named_parameters():
+            s = opt.adam.state[p]
+            if not (torch.equal(s["exp_avg"].cpu(), mu_sd[n])
+                    and torch.equal(s["exp_avg_sq"].cpu(), nu_sd[n])
+                    and float(s["step"]) == CKPT_COUNT):
+                bad.append(f"adam[{n}]")
+        if bad or (epoch, opt.count, opt.notfinite_count, st.step) != (
+                4, CKPT_COUNT, 0, CKPT_STEP):
+            raise AssertionError(f"resume: {bad[:5]} differ; epoch {epoch}, "
+                                 f"count {opt.count}, step {st.step}")
+        n_moments = sum(v.numel() for v in mu_sd.values())
+        log(f"[15 ckpt] export of the full-width train state ({n_moments} "
+            f"parameters, Adam count {CKPT_COUNT}, step {CKPT_STEP}) in "
+            f"{export_s:.1f} s, file {os.path.getsize(path) / 2 ** 30:.2f} "
+            f"GiB; Trainer.resume on the card in {resume_s:.1f} s: every "
+            f"weight, buffer, moment and count bitwise equal")
+        del mu_sd, nu_sd
+        _, batches = training_batches(cfg, data.vocab, data.answers,
+                                      CKPT_STEPS)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        step_ms, losses = [], []
+        for _, batch in batches:
+            t0 = time.perf_counter()
+            trainer.state, m = trainer.train_step(trainer.state,
+                                                  batch.to("cuda"))
+            losses.append(float(m["loss_sum"] / m["count"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts["checkpoints.resume"] = ops.launch_counts(ops.TRAIN_WRAPPERS)
+        if not (np.isfinite(losses).all() and opt.count == CKPT_COUNT
+                + CKPT_STEPS and trainer.state.step == CKPT_STEP + CKPT_STEPS
+                and min(counts["checkpoints.resume"].values()) > 0):
+            raise AssertionError(f"resumed steps: losses {losses}, count "
+                                 f"{opt.count}, launches "
+                                 f"{counts['checkpoints.resume']}")
+        log(f"[15 ckpt] {CKPT_STEPS} resumed steps at {TRAIN_B}: losses "
+            f"{[round(v, 5) for v in losses]}, ms "
+            f"{[round(v, 1) for v in step_ms]} (the first a fresh state's); "
+            f"Adam's count {CKPT_COUNT} -> {opt.count}; launches "
+            f"{json.dumps(counts['checkpoints.resume'])}")
+        del trainer, st, opt, batches
+        torch.cuda.empty_cache()
+
+        # (b) serving the exported file against the source weights
+        served = Predictor.from_checkpoint(path, device="cuda")
+        own = Predictor(served.cfg, served.vocab, served.answers,
+                        state_dict=sd, device="cuda")
+        ds = SyntheticGQA(served.vocab, served.answers, size=64, seed=0,
+                          shape_mix="gqa")
+        colls = build_bucket_collators(served.cfg, served.tokenizer,
+                                       served.vocab, batch_size=32)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        n_q = 0
+        for b_idx, (batch, meta) in enumerate(
+                iterate_batches_bucketed(ds, colls)):
+            batch = batch.to("cuda")
+            got = [p._forward(batch, torch.Generator(device="cuda")
+                              .manual_seed(b_idx))
+                   for p in (served, own)]
+            for what, a, b in zip(("logits", "node mask", "gate"), *got):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"served {what} differ by "
+                        f"{(a.float() - b.float()).abs().max().item()}")
+            n_q += meta.num_real
+        counts["checkpoints.serve"] = ops.launch_counts(ops.EVAL_WRAPPERS)
+        if n_q != 64 or min(counts["checkpoints.serve"].values()) == 0:
+            raise AssertionError(f"serving: {n_q} questions, launches "
+                                 f"{counts['checkpoints.serve']}")
+        answers = [r.answer for r in served.predict(
+            [ds.samples[i][2] for i in range(8)],
+            [ds.store.scene_graphs[ds.samples[i][1]] for i in range(8)])]
+        log(f"[15 ckpt] Predictor.from_checkpoint(exported): 64 questions, "
+            f"logits, node masks and gates bitwise equal to a Predictor of "
+            f"the source state dict; launches "
+            f"{json.dumps(counts['checkpoints.serve'])}; first answers "
+            f"{answers[:3]}")
+        del served, own
+
+        # (c) an upstream .pth, its config, and the port's parity report
+        args = argparse.Namespace(
+            mgat_layers=cfg.mgat_layers, sampler_type=cfg.sampler_type,
+            sample_k=cfg.sample_k, nb_samples=cfg.nb_samples,
+            alpha=cfg.alpha, beta=cfg.beta, tau=cfg.tau,
+            use_topk=cfg.use_topk, interpretable_mode=cfg.interpretable_mode,
+            concat_instr=cfg.concat_instr, use_all_instrs=cfg.use_all_instrs,
+            use_global_mask=cfg.use_global_mask,
+            text_sampling=cfg.text_sampling,
+            general_hidden_dim=cfg.general_hidden_dim,
+            mgat_masks=list(cfg.mgat_masks), lr=cfg.lr, epochs=100)
+        # random weights answer near-uniformly over 1842 labels, and the
+        # dev answers span ~1,200 of them: lift the most frequent few
+        # above the rest, so that the report answers among them, the
+        # argmax among them rests on the forward, and some answers are
+        # right for the accuracy and the co-occurrence metrics to count
+        dev = build_datasets(dataclasses.replace(
+            train_config(), synthetic=True, synthetic_size=4 * PARITY_DEV,
+            synthetic_shape_mix="gqa")).datasets["dev"]
+        labels = [label for label, _ in collections.Counter(
+            dev.answers.label_of(q[3]) for q in dev.samples).most_common(
+                PARITY_LIFTED)]
+        lifted = dict(sd, **{"logit_fc.bias": sd["logit_fc.bias"].clone()})
+        lifted["logit_fc.bias"][labels] += 5.0
+        pth = os.path.join(root, "upstream.pth")
+        torch.save({"model": {f"module.{k}": v for k, v in lifted.items()},
+                    "args": args, "epoch": 3}, pth)
+        del dev, lifted
+        pred = Predictor.from_checkpoint(pth, device="cuda")
+        want = dataclasses.replace(train_config(),
+                                   num_answers=len(pred.answers))
+        diff = {f.name: (getattr(pred.cfg, f.name), getattr(want, f.name))
+                for f in dataclasses.fields(want)
+                if getattr(pred.cfg, f.name) != getattr(want, f.name)}
+        if diff:
+            raise AssertionError(f"config from the .pth's args: {diff}")
+        del pred
+        argv = ["--torch_ckpt", pth, "--synthetic", "--synthetic_size",
+                str(4 * PARITY_DEV), "--work_dir", root,
+                "--set", f"batch_size={PARITY_B}",
+                "--set", "eval_batch_factor=1",
+                "--set", 'compute_dtype="float32"',
+                "--set", 'synthetic_shape_mix="gqa"']
+        reports, records, walls = {}, {}, {}
+        for plain in (False, True):
+            name = "plain" if plain else "kernels"
+            records[name] = []
+            handle = logits_hook(records[name])
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                with eval_layers(plain):
+                    reports[name], _ = captured(parity_report.main, argv + [
+                        "--out", os.path.join(root, f"report_{name}")])
+            finally:
+                handle.remove()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            if not plain:
+                counts["checkpoints.parity_report"] = ops.launch_counts(
+                    ops.EVAL_WRAPPERS)
+        k_rec, p_rec = records["kernels"], records["plain"]
+        err = max((a[0] - b[0]).abs().max().item()
+                  for a, b in zip(k_rec, p_rec))
+        same_masks = len(k_rec) == len(p_rec) and all(
+            torch.equal(a[1], b[1]) for a, b in zip(k_rec, p_rec))
+        mk, mp = reports["kernels"]["metrics"], reports["plain"]["metrics"]
+        same_metrics = set(mk) == set(mp) and all(
+            mk[k] == mp[k] or (np.isnan(mk[k]) and np.isnan(mp[k]))
+            for k in mk)
+        counted = mk["accuracy"] > 0 and any(
+            np.isfinite(v) for k, v in mk.items() if k.endswith("_coo"))
+        if not (same_masks and err <= PARITY_F32_TOL and same_metrics
+                and counted
+                and reports["kernels"]["num_samples"] == PARITY_DEV
+                and min(counts["checkpoints.parity_report"].values()) > 0):
+            raise AssertionError(
+                f"parity report: logits {err}, masks equal {same_masks}, "
+                f"metrics {mk} / {mp}, launches "
+                f"{counts['checkpoints.parity_report']}")
+        log(f"[15 ckpt] upstream .pth: Predictor.from_checkpoint with no "
+            f"config derives the source's config field by field; "
+            f"parity_report --synthetic, {PARITY_DEV} dev questions at "
+            f"B={PARITY_B}, f32: kernels {json.dumps(mk)} in "
+            f"{walls['kernels']:.1f} s, plain {json.dumps(mp)} in "
+            f"{walls['plain']:.1f} s (the answer bias lifted at the "
+            f"{PARITY_LIFTED} most frequent dev answers; every metric "
+            f"equal); {len(k_rec)} forwards, logits "
+            f"max abs {err:.3g} (bound {PARITY_F32_TOL}), node masks "
+            f"identical; "
+            f"launches {json.dumps(counts['checkpoints.parity_report'])}")
+        del records, k_rec, p_rec
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (d) the library ops on the card against the CPU
+    t0 = time.perf_counter()
+    worst = {}
+    for name, fn, inputs in library_cases(np.random.default_rng(16)):
+        want = fn(*inputs)
+        got = fn(*(x.to("cuda") if isinstance(x, torch.Tensor) else x
+                   for x in inputs))
+        torch.cuda.synchronize()
+        worst[name] = same_outputs(name, got, want)
+    log(f"[15 ckpt] {len(worst)} library ops at B={LIB_B}, N={LIB_N}, "
+        f"E={LIB_E} on the card against the CPU in "
+        f"{time.perf_counter() - t0:.1f} s: masks, indices and integers "
+        f"equal, f32 within {LIB_REL} of scale (worst "
+        f"{max(worst.values()):.3g}, {max(worst, key=worst.get)})")
+    log(f"[15 ckpt] phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3011,6 +3473,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_counts.update({f"native_ddp.{k}": v
                          for k, v in phase_native_ddp(smi).items()})
+    torch.cuda.empty_cache()
+    bench_counts.update(phase_checkpoints(smi))
     line = []
     for k, (src, replaces) in KERNELS.items():
         r = entries[(k, torch.bfloat16)]

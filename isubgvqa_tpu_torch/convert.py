@@ -19,8 +19,14 @@ without ``ques_nn`` (which the JAX converter does not cover).  Layouts:
 * BatchNorm running statistics come from ``batch_stats``.
 
 :func:`aimle_states_from_jax` carries the aimle sampler's adaptive
-states (the JAX train state's ``aimle_states``) across.
-:func:`load_upstream_state_dict` reads an upstream ``.pth`` payload, and
+states (the JAX train state's ``aimle_states``) across, and
+:func:`train_payload_from_jax` a whole JAX train state: the weights,
+Adam's moments (through the same re-layout as the weights), its count,
+the non-finite count, the step, the AIMLE states and the epoch, as the
+port's checkpoint payload (``tools/export_torch_checkpoint.py`` reads an
+orbax directory into it).  :func:`load_upstream_state_dict` reads an
+upstream ``.pth`` payload, :func:`config_from_reference_args` derives the
+config from its ``args`` as the JAX converter does, and
 :func:`load_clip_text_tables` the pretrained CLIP text tables that
 ``cfg.clip_weights`` names (the port's copy of
 ``isubgvqa_tpu/convert.py:load_clip_text_tables``, same formats and key
@@ -29,13 +35,15 @@ spellings).
 
 from __future__ import annotations
 
+import itertools
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .sampling.aimle import AIMLEState
+from .config import Config
+from .sampling.aimle import AIMLE_FIELDS, AIMLEState
 
 
 def _t(a) -> torch.Tensor:
@@ -310,14 +318,168 @@ def aimle_states_from_jax(states: Optional[Mapping],
     stays ``None``."""
     if states is None:
         return None
-
-    def field(st, name):
-        return torch.tensor(float(np.asarray(getattr(st, name), np.float32)),
-                            dtype=torch.float32, device=device)
-
-    return {int(i): AIMLEState(*(field(st, f) for f in
-                                 ("beta", "grad_norm", "prev_update")))
+    return {int(i): AIMLEState(*(torch.tensor(_aimle_field(st, f),
+                                              device=device)
+                                 for f in AIMLE_FIELDS))
             for i, st in states.items()}
+
+
+def _aimle_field(st, name: str) -> np.ndarray:
+    """One field of a JAX ``AIMLEState``, or of the dict that orbax
+    restores it as, as a 0-d f32 array."""
+    v = st[name] if isinstance(st, Mapping) else getattr(st, name)
+    return np.array(v, np.float32).reshape(())
+
+
+def _leaves(tree, path: str = "") -> List[Tuple[str, np.ndarray]]:
+    """A nested dict's leaves in JAX's flatten order (sorted keys)."""
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree)
+                for leaf in _leaves(tree[k], f"{path}/{k}")]
+    return [(path, np.asarray(tree))]
+
+
+def _like(tree, fill):
+    """``tree`` with its i-th leaf replaced by ``fill(i, leaf)``."""
+    counter = itertools.count()
+
+    def walk(t):
+        if isinstance(t, Mapping):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return fill(next(counter), np.asarray(t))
+    return walk(tree)
+
+
+def _check_relayout(params: Mapping, names: List[str]) -> None:
+    """Raise unless :func:`state_dict_from_jax` moves every element of
+    every flax parameter, unchanged, into exactly one place of the port's
+    parameters ``names``: only such a re-layout can carry Adam's moments
+    (which it maps like the weights).  Each flax leaf is filled with its
+    own index + 1; a parameter holding any other value (an arithmetic
+    mapping) is named, and so is a leaf whose elements land elsewhere
+    than once each."""
+    leaves = _leaves(params)
+    probe = _like(params, lambda i, a: np.full(a.shape, i + 1, np.float32))
+    stats = {"scene_graph_encoder": {
+        n: {"mean": np.zeros(1, np.float32), "var": np.zeros(1, np.float32)}
+        for n in ("bbox_bn0", "bbox_bn1", "reduc_bn")}}
+    mapped = state_dict_from_jax(probe, stats)
+    counts = np.zeros(len(leaves) + 1, np.int64)
+    readers: Dict[int, List[str]] = {}
+    for name in names:
+        v = mapped[name].numpy().reshape(-1)
+        ids = v.astype(np.int64)
+        if not (np.array_equal(ids, v) and ids.min() >= 1
+                and ids.max() <= len(leaves)):
+            raise ValueError(f"{name}: its mapping from the flax parameters "
+                             f"is not a re-layout, so Adam's moments cannot "
+                             f"be carried to it")
+        here = np.bincount(ids, minlength=len(leaves) + 1)
+        counts += here
+        for i in np.flatnonzero(here):
+            readers.setdefault(int(i), []).append(name)
+    for i, (path, a) in enumerate(leaves, start=1):
+        if counts[i] != a.size:
+            raise ValueError(f"flax parameter {path}: {counts[i]} of its "
+                             f"{a.size} elements reach the port's parameters "
+                             f"{readers.get(i, [])}: not a re-layout, so its "
+                             f"moments cannot be carried")
+
+
+def _cpu_train_state(cfg: Config, sd: Mapping[str, torch.Tensor]):
+    """A port train state on the CPU holding ``sd``: the model built as
+    ``build_model(..., train=True)`` builds it (the caller's random
+    stream untouched) and the port's own ``make_optimizer`` over it."""
+    from .models.isubgvqa import ISubGVQA
+    from .train.schedule import make_optimizer
+    from .train.state import TrainState
+
+    vocab = sd["scene_graph_encoder.sg_vocab_embedding.weight"].shape[0]
+    with torch.random.fork_rng(devices=[]):
+        model = ISubGVQA(cfg, sg_vocab_size=vocab)
+    model.load_state_dict(sd, strict=True)   # names keys the config lacks
+    # the schedule is not stored: a resuming Trainer builds its own, and
+    # sets Adam's rate from it at the restored count before each update
+    opt = make_optimizer(model.train().parameters(), cfg.lr, 1,
+                         cfg.warmup_epochs, cfg.warmup_start_lr, cfg.lr_gamma,
+                         cfg.grad_clip_norm)
+    return TrainState(step=0, model=model, optimizer=opt)
+
+
+def train_payload_from_jax(params: Mapping, batch_stats: Mapping,
+                           config: str, mu: Optional[Mapping] = None,
+                           nu: Optional[Mapping] = None, count: int = 0,
+                           notfinite_count: int = 0, step: int = 0,
+                           aimle_states: Optional[Mapping] = None,
+                           epoch: int = -1) -> dict:
+    """A JAX train state (numpy trees) -> the port's checkpoint payload,
+    written by :func:`~.train.checkpoint.state_payload` from a port train
+    state filled on the CPU, so ``CheckpointManager.restore`` and
+    ``Predictor.from_checkpoint`` load it with ``weights_only=True``.
+
+    ``params`` / ``batch_stats`` are the flax trees; ``mu`` / ``nu``
+    Adam's moments as params-shaped trees, ``count`` optax Adam's count
+    (the schedule's step), ``notfinite_count`` the skip wrapper's,
+    ``step`` the train state's; ``aimle_states`` ``{layer: AIMLEState}``
+    (or orbax's dicts of it); ``config`` the config's JSON.  The moments
+    go through :func:`state_dict_from_jax` as the weights do (checked to
+    be a pure re-layout, :func:`_check_relayout`) into torch Adam's state
+    of each parameter, its ``step`` the Adam count, under the parameter
+    group the port's ``Optimizer`` builds.  Without ``mu`` and ``nu``
+    the payload holds the model only (weights, buffers, AIMLE states,
+    epoch): it can be validated, served and explained, and a training
+    resume refuses it."""
+    from .train.checkpoint import TRAINING_KEYS, state_payload
+
+    if (mu is None) != (nu is None):
+        raise ValueError("Adam's moments come in pairs: give mu and nu")
+    cfg = Config.from_json(config)
+    state = _cpu_train_state(cfg, state_dict_from_jax(params, batch_stats))
+    state.aimle_states = aimle_states_from_jax(aimle_states or None)
+    if mu is not None:
+        names = [n for n, _ in state.model.named_parameters()]
+        _check_relayout(params, names)
+        mu_sd = state_dict_from_jax(mu, batch_stats)
+        nu_sd = state_dict_from_jax(nu, batch_stats)
+        adam = state.optimizer.adam
+        adam.load_state_dict({
+            "state": {i: {"step": torch.tensor(float(count)),
+                          "exp_avg": mu_sd[n], "exp_avg_sq": nu_sd[n]}
+                      for i, n in enumerate(names)},
+            "param_groups": adam.state_dict()["param_groups"]})
+        state.optimizer.count = int(count)
+        state.optimizer.notfinite_count = int(notfinite_count)
+        state.step = int(step)
+    payload = state_payload(state, int(epoch), cfg)
+    if mu is None:
+        for k in TRAINING_KEYS:
+            del payload[k]
+    return payload
+
+
+# Config fields recoverable from an upstream checkpoint's ``args`` (the
+# reference persists ``args`` whole, ``training/train_loop.py:88-94``,
+# and rebuilds the model from them, ``run_token_coo.py:29-45``): the
+# JAX converter's ``_ARGS_CONFIG_FIELDS``.
+ARGS_CONFIG_FIELDS = (
+    "mgat_layers", "sampler_type", "sample_k", "nb_samples", "alpha",
+    "beta", "tau", "use_topk", "interpretable_mode", "concat_instr",
+    "use_all_instrs", "use_global_mask", "text_sampling",
+    "general_hidden_dim",
+)
+
+
+def config_from_reference_args(args) -> Config:
+    """The config of an upstream checkpoint from its ``args`` (an
+    ``argparse.Namespace`` or any object with those attributes), by the
+    JAX converter's rule (``isubgvqa_tpu/convert.py:354-361``): each of
+    :data:`ARGS_CONFIG_FIELDS` and ``mgat_masks`` that ``args`` has and
+    that is not ``None``, the rest the defaults."""
+    kw = {name: getattr(args, name) for name in ARGS_CONFIG_FIELDS
+          if args is not None and hasattr(args, name)}
+    if getattr(args, "mgat_masks", None) is not None:
+        kw["mgat_masks"] = tuple(args.mgat_masks)
+    return Config(**{k: v for k, v in kw.items() if v is not None})
 
 
 def load_upstream_state_dict(sd: Mapping, node_classification: bool = False

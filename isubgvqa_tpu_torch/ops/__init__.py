@@ -19,14 +19,19 @@ launch kernels, counted apart (``.launches`` and ``.bwd_launches``):
   :func:`~.text_train.fused_decoder_layer_train` (``text_train.py``).
 
 The CUDA sources are under ``isubgvqa_tpu_torch/csrc/``; :mod:`._lib`
-builds and loads them on first use.
+builds and loads them on first use.  The segment reductions and the
+flat <-> dense conversions of the JAX package's ``ops`` are exported
+here too, as its ``ops/__init__.py`` exports them.
 """
 
+from .dense import dense_topk_mask, from_dense_batch, to_dense_batch
 from .gat_kernel import fused_gat_layer, fused_gat_layer_plain
 from .gat_train import fused_gatconv, fused_gatconv_plain
 from .metalayer_kernel import fused_metalayer, fused_metalayer_plain
 from .metalayer_train import (fused_metalayer_train,
                               fused_metalayer_train_plain)
+from .segment import (segment_max, segment_mean, segment_min,
+                      segment_normalize, segment_softmax, segment_sum)
 from .text_kernel import (fused_decoder_layer, fused_decoder_layer_plain,
                           fused_encoder_layer, fused_encoder_layer_plain)
 from .text_train import (fused_decoder_layer_train,
@@ -66,5 +71,7 @@ __all__ = [
     "fused_encoder_layer_train", "fused_encoder_layer_train_plain",
     "fused_decoder_layer_train", "fused_decoder_layer_train_plain",
     "EVAL_WRAPPERS", "TRAIN_WRAPPERS", "WRAPPERS", "reset_launch_counts",
-    "launch_counts",
+    "launch_counts", "segment_sum", "segment_mean", "segment_max",
+    "segment_min", "segment_softmax", "segment_normalize", "to_dense_batch",
+    "from_dense_batch", "dense_topk_mask",
 ]

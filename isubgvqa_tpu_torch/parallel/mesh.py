@@ -74,16 +74,19 @@ def init_distributed(device=None, timeout: datetime.timedelta =
     ``MASTER_PORT``); returns whether a group is up.  No such
     environment: nothing happens (one process).  ``device`` picks the
     backend (NCCL for CUDA, Gloo otherwise; default: the card when there
-    is one) and, for CUDA, becomes this process's current card.
-    ``init_method`` replaces ``env://`` (``file://<path>`` for a group
-    that needs no port)."""
+    is one; with none, it raises as ``resolve_device`` does rather than
+    join Gloo on the CPU unasked) and, for CUDA, becomes this process's
+    current card.  ``init_method`` replaces ``env://`` (``file://<path>``
+    for a group that needs no port)."""
     if is_initialized():
         return True
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         return False
     if device is None:
-        device = (device_for_rank() if torch.cuda.is_available()
-                  else torch.device("cpu"))
+        from ..models.build import resolve_device   # (a cycle at import)
+
+        resolve_device()               # raises without a card
+        device = device_for_rank()
     device = torch.device(device)
     cuda = device.type == "cuda"
     if cuda:

@@ -74,6 +74,10 @@ class AIMLEState:
                           self.prev_update.to(device))
 
 
+# the state's field names, in order: the keys of a checkpoint's AIMLE states
+AIMLE_FIELDS = tuple(f.name for f in dataclasses.fields(AIMLEState))
+
+
 def init_aimle_state(device=None, initial_beta: float = 0.0,
                      initial_grad_norm: float = 1.0) -> AIMLEState:
     def scalar(v):

@@ -1,16 +1,49 @@
-"""Node gate -> edge gate with the reference's backward (the port of
-``isubgvqa_tpu/sampling/node_edge.py:dense_node_gate_to_edge_gate``).
+"""Node mask -> edge mask with the reference's backward (the port of
+``isubgvqa_tpu/sampling/node_edge.py``; ``NodeMaskToEdgeMask``,
+``sampling/node_edge_masks.py:5-19`` of the reference).
 
-Forward: ``egate[e] = gate[src[e]] * gate[dst[e]]`` on valid edges, 0 on
-padding.  Backward: the incoming cotangent is summed to the
-**destination** nodes only (``sampling/node_edge_masks.py:13-19`` of the
-reference), not by the product rule.  The CUDA training conv
-(``csrc/gat_train.cu``) reproduces the same rule.
+Forward: ``edge[e] = mask[src[e]] * mask[dst[e]]``.  Backward: the
+incoming cotangent is summed to the **destination** nodes only
+(``node_edge_masks.py:13-19``), not by the product rule.  Two layouts:
+
+* :func:`node_mask_to_edge_mask`, flat: ``mask [N]`` or ``[N, 1]`` and
+  ``src`` / ``dst [E]``.  Its gathers follow JAX's indexing (a negative
+  index wraps once, the rest are clamped) and its backward drops
+  destinations outside ``[0, num_nodes)``, as ``jax.ops.segment_sum``
+  does;
+* :func:`dense_node_gate_to_edge_gate`, per graph: the gate ``[B, N]``
+  and ``src`` / ``dst`` / ``edge_mask [B, E]``, 0 on padding edges; the
+  version the GAT path trains through.  The CUDA training conv
+  (``csrc/gat_train.cu``) reproduces the same rule.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..ops.segment import gather_segments, segment_sum
+
+
+class _NodeMaskToEdgeMask(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mask, src, dst, num_nodes):
+        ctx.save_for_backward(dst)
+        ctx.num_nodes, ctx.shape = num_nodes, mask.shape
+        return gather_segments(mask, src) * gather_segments(mask, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        grad = segment_sum(g, dst, ctx.num_nodes).reshape(ctx.shape)
+        return grad, None, None, None
+
+
+def node_mask_to_edge_mask(mask: torch.Tensor, src: torch.Tensor,
+                           dst: torch.Tensor, num_nodes: int
+                           ) -> torch.Tensor:
+    """``mask [N, 1]`` (or ``[N]``), ``src`` / ``dst [E]`` -> edge mask
+    ``[E, 1]`` (or ``[E]``) with the dst-only backward."""
+    return _NodeMaskToEdgeMask.apply(mask, src, dst, num_nodes)
 
 
 def _inside(idx, n, edge_mask):

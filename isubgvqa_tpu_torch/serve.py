@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .config import Config
-from .convert import load_upstream_state_dict
+from .convert import config_from_reference_args, load_upstream_state_dict
 from .data.batching import iterate_batches_bucketed
 from .data.build import build_bucket_collators
 from .data.gqa import AnswerMap, Sample
@@ -91,16 +91,22 @@ class Predictor:
         of the Trainer's checkpoints (``checkpoint``,
         ``checkpoint_lowest_val_loss``, ``checkpoint_top_res``,
         ``checkpoint{epoch:04d}``; :mod:`.train.checkpoint`), whose payload
-        holds the same two keys, or an upstream ``.pth`` together with
-        ``cfg``.  A ``cfg`` given with the port's file replaces its
-        config (another compute dtype, say)."""
+        holds the same two keys, as does a JAX run's state exported by
+        ``tools/export_torch_checkpoint.py``; or an upstream ``.pth``,
+        whose config comes from its ``args`` by the JAX converter's rule
+        (:func:`~.convert.config_from_reference_args`).  A ``cfg`` given
+        replaces the file's config (another compute dtype, say); an
+        upstream state dict without ``args`` needs one."""
         blob = torch.load(path, map_location="cpu", weights_only=False)
         if isinstance(blob, dict) and "state_dict" in blob:
             cfg = cfg or Config.from_json(blob["config"])
             sd = blob["state_dict"]
         else:
             if cfg is None:
-                raise ValueError("an upstream checkpoint needs a Config")
+                if not (isinstance(blob, dict) and "args" in blob):
+                    raise ValueError("an upstream state dict without args "
+                                     "needs a Config")
+                cfg = config_from_reference_args(blob["args"])
             sd = load_upstream_state_dict(blob, cfg.node_classification)
         vocab = SceneGraphVocab.build(cfg.meta_dir, glove_path=cfg.glove_path,
                                       seed=cfg.seed)

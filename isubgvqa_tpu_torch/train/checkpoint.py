@@ -19,6 +19,12 @@ weights_only=True)`` opens it:
 * ``step`` (the train state's step), ``aimle_states`` (each masked
   layer's three 0-d tensors, or ``None``) and ``epoch``.
 
+A payload exported from the JAX package
+(``convert.train_payload_from_jax``) is built by :func:`state_payload`
+too and written by :func:`write_checkpoint`; one exported from weights
+alone lacks the optimizer's four keys, and a training resume refuses
+it.
+
 A file is written under a temporary name and renamed over the old one
 (``os.replace``), so a run killed while writing never leaves a
 half-written checkpoint.  In a data-parallel run only rank 0 writes (the
@@ -36,9 +42,11 @@ import torch
 
 from ..config import Config
 from ..parallel.mesh import barrier, is_main_process
+from ..sampling.aimle import AIMLE_FIELDS
 from .state import TrainState
 
-AIMLE_FIELDS = ("beta", "grad_norm", "prev_update")
+# the keys a training resume needs beyond the model's
+TRAINING_KEYS = ("optimizer", "count", "notfinite_count", "step")
 
 
 def state_payload(state: TrainState, epoch: int, cfg: Config) -> dict:
@@ -62,6 +70,20 @@ def state_payload(state: TrainState, epoch: int, cfg: Config) -> dict:
     }
 
 
+def write_checkpoint(payload: dict, path: str) -> None:
+    """``payload`` (a :func:`state_payload`) to ``path`` beside
+    ``<path>.meta.json`` (its epoch and config), each written under a
+    temporary name and renamed over the old file."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    meta = {"epoch": payload["epoch"],
+            "config": json.loads(payload["config"])}
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, path + ".meta.json")
+
+
 class CheckpointManager:
     def __init__(self, output_dir: str):
         self.output_dir = os.path.abspath(output_dir)
@@ -80,16 +102,8 @@ class CheckpointManager:
 
     def _write(self, name: str, state: TrainState, epoch: int, cfg: Config,
                _payload: Optional[dict] = None):
-        path = self._path(name)
-        payload = _payload if _payload is not None else state_payload(
-            state, epoch, cfg)
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        meta = {"epoch": epoch, "config": json.loads(cfg.to_json())}
-        with open(tmp, "w") as f:
-            json.dump(meta, f)
-        os.replace(tmp, path + ".meta.json")
+        write_checkpoint(_payload if _payload is not None else
+                         state_payload(state, epoch, cfg), self._path(name))
 
     def save_policy(self, state: TrainState, epoch: int, cfg: Config,
                     val_loss: float, val_acc: float,
@@ -124,6 +138,12 @@ class CheckpointManager:
         reference's eval-time resume (``main.py:131``)."""
         path = self._path(name)
         blob = torch.load(path, map_location="cpu", weights_only=True)
+        missing = [k for k in TRAINING_KEYS if k not in blob]
+        if missing and not model_only:
+            raise ValueError(
+                f"{path} holds the model only (no {', '.join(missing)}): it "
+                f"can be validated (-e), served or explained, not resumed "
+                f"for training")
         state.model.load_state_dict(blob["state_dict"], strict=True)
         if state.aimle_states is not None and blob.get("aimle_states"):
             with torch.no_grad():

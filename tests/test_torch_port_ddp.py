@@ -353,3 +353,26 @@ def test_two_rank_step_matches_jax(job):
         scale = max(float(np.abs(w).max()), floor)
         err = float(np.abs(got[k] - w).max()) / scale
         assert err <= 2e-3, f"{k}: {err:.3g} of scale {scale:.3g}"
+
+
+def test_init_distributed_refuses_the_cpu_unasked(tmp_path, monkeypatch):
+    """Under ``torchrun``'s environment on a machine without CUDA,
+    ``init_distributed()`` with no device raises with ``resolve_device``'s
+    message instead of joining a Gloo group on the CPU; ``device="cpu"``
+    still joins Gloo."""
+    from isubgvqa_tpu_torch import parallel
+
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    init = f"file://{tmp_path / 'store'}"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.init_distributed(init_method=init)
+    assert not parallel.is_initialized()
+    try:
+        assert parallel.init_distributed("cpu", init_method=init)
+        assert torch.distributed.get_backend() == "gloo"
+        assert parallel.world_size() == 1 and parallel.is_main_process()
+    finally:
+        parallel.shutdown()
+    assert not parallel.is_initialized()
