@@ -170,8 +170,25 @@ script exits non-zero):
     the card against the same call on the CPU at B = 256, N = 128,
     E = 384 (masks, indices and integers exact, f32 within 1e-6 of the
     output's scale); the launch counts of its paths;
+16. convergence: ``train_convergence.run_sampler`` trains the simple
+    sampler on the config of record at full width (bf16, batch 256, the
+    GQA-like synthetic task of 8,192 training and 2,048 validation
+    questions over the GQA-like meta-info stand-in, this machine having
+    no GQA meta-info) for 25 epochs under the reference's checkpoint policy:
+    each epoch's row, finite losses and no skipped step, best validation
+    accuracy at least 20 %, every kernel launched over the leg; then
+    ``nan_localizer`` on the leg's rolling checkpoint (no nonfinite step
+    in 8) and on a copy with one weight of the masked GAT layer set to
+    inf (that layer's call into #5 named first); then the bf16 kernel
+    path against the f32 plain path on the trained weights over the dev
+    questions (``bf16_agreement``: the top-1 agreement of the bf16
+    kernels and of the bf16 plain path with the f32 plain path, and of
+    the kernels' disagreements those the bf16 plain path shares and those
+    inside its rounding margin), for the config of record and,
+    where its parameters have the same shapes, the masks (0.3, 1, 0.5,
+    0.15) variant;
 then the per-kernel JSON line (all eight kernels, with the bench's
-launches, phase 11's, 12's, 13's, 14's and 15's among them, beside the
+launches, phase 11's, 12's, 13's, 14's, 15's and 16's among them, beside the
 main path's, and #1's and #5's times at the variants' shapes) and the
 final ``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
 the serving model is built.
@@ -721,36 +738,13 @@ def profile_serving(pred, questions, graphs):
         f"{busy:.2f} ms ({busy / wall:.1%}); by kernel: {by_kernel(families)}")
 
 
-@contextlib.contextmanager
-def eval_layers(plain):
-    """Inside, the model's eval forward runs the four fused layers' plain
-    versions when ``plain`` is true, else their kernels."""
-    from isubgvqa_tpu_torch import ops
-    from isubgvqa_tpu_torch.models import (mgat, question_decoder,
-                                           question_encoder,
-                                           scene_graph_encoder)
-
-    sites = [(question_encoder, "fused_encoder_layer"),
-             (question_decoder, "fused_decoder_layer"),
-             (scene_graph_encoder, "fused_metalayer"),
-             (mgat, "fused_gat_layer")]
-    saved = [getattr(m, n) for m, n in sites]
-    try:
-        if plain:
-            for m, n in sites:
-                setattr(m, n, getattr(ops, n + "_plain"))
-        yield
-    finally:
-        for (m, n), fn in zip(sites, saved):
-            setattr(m, n, fn)
-
-
 def forward_path(model, batch, noise, plain, aimle_states=None):
     """One eval forward through the kernels, or with ``plain`` through the
     fused layers' plain versions, with the sampler's ``noise`` given."""
     import torch
+    from isubgvqa_tpu_torch.models.fused_sites import plain_layers
 
-    with eval_layers(plain), torch.no_grad():
+    with plain_layers(plain), torch.no_grad():
         return model(batch, noise=noise, aimle_states=aimle_states)
 
 
@@ -1958,6 +1952,7 @@ def phase_entry_points():
     from isubgvqa_tpu_torch.data import iterate_batches_bucketed
     from isubgvqa_tpu_torch.explain import run_token_coo_exp
     from isubgvqa_tpu_torch.models.build import build_model
+    from isubgvqa_tpu_torch.models.fused_sites import plain_layers
     from isubgvqa_tpu_torch.serve import Predictor
 
     t_phase = time.perf_counter()
@@ -2110,7 +2105,7 @@ def phase_entry_points():
             gap = min(gap, (top2[:, 0] - top2[:, 1]).min().item())
         sums = []
         for plain in (False, True):
-            with eval_layers(plain):
+            with plain_layers(plain):
                 sums.append(quiet(lambda: run_token_coo_exp(model_i, data,
                                                             cfg_i)))
         if sums[0].sums != sums[1].sums:
@@ -2451,6 +2446,7 @@ def phase_variants(dev):
                                          iterate_batches_bucketed)
     from isubgvqa_tpu_torch.explain import run_token_coo_exp
     from isubgvqa_tpu_torch.models.build import build_model
+    from isubgvqa_tpu_torch.models.fused_sites import plain_layers
     from isubgvqa_tpu_torch.serve import Predictor
     from isubgvqa_tpu_torch.train import create_train_state, make_train_step
 
@@ -2512,7 +2508,7 @@ def phase_variants(dev):
         kw = dict(explainer=True, explainer_stage=stage, expl_bypass_x=x)
         with torch.no_grad():
             k = add_launches(counts, m32, batch, noise=noise, **kw)
-            with eval_layers(True):
+            with plain_layers(True):
                 p = m32(batch, noise=noise, **kw)
             want = m32(batch, noise=noise).logits if stage == 0 else p
         err = max((k - p).abs().max().item(), (k - want).abs().max().item())
@@ -3192,6 +3188,7 @@ def phase_checkpoints(smi):
                                          SyntheticGQA, build_bucket_collators,
                                          build_datasets,
                                          iterate_batches_bucketed)
+    from isubgvqa_tpu_torch.models.fused_sites import plain_layers
     from isubgvqa_tpu_torch.serve import Predictor
     from isubgvqa_tpu_torch.train import create_train_state
     from isubgvqa_tpu_torch.train.checkpoint import write_checkpoint
@@ -3370,7 +3367,7 @@ def phase_checkpoints(smi):
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             try:
-                with eval_layers(plain):
+                with plain_layers(plain):
                     reports[name], _ = captured(parity_report.main, argv + [
                         "--out", os.path.join(root, f"report_{name}")])
             finally:
@@ -3433,6 +3430,144 @@ def phase_checkpoints(smi):
     return counts
 
 
+CONV_EPOCHS = 25            # phase 16's leg: simple at full width
+CONV_MIN_ACC = 20.0         # % best validation accuracy the leg must reach
+                            # (chance 0.054 %, the majority answer 0.7 %)
+CONV_LOCALIZER_STEPS = 8    # replayed steps on the clean checkpoint
+CONV_POISON = "gat_seq.convs.3.lin_l.weight"   # the masked GAT layer's
+CONV_POISONED = "gat_seq [fused_gat_layer_train call 3]"
+CONV_VARIANTS = {"config of record": {},
+                 "masks (0.3, 1, 0.5, 0.15)":
+                     {"mgat_masks": (0.3, 1.0, 0.5, 0.15)}}
+
+
+def phase_convergence(smi, epochs=CONV_EPOCHS, min_acc=CONV_MIN_ACC):
+    """Phase 16: convergence training on the card.  ``train_convergence.
+    run_sampler("simple")`` trains the config of record at full width
+    (bf16, batch 256, the GQA-like synthetic task of 8,192 training and
+    2,048 validation questions over the GQA-like meta-info stand-in, one
+    node bucket at 128) for ``epochs``
+    epochs under the reference's checkpoint policy, into a temporary
+    output root: every epoch's train and validation loss finite, no step
+    skipped, best validation accuracy at least ``min_acc`` %, and each of
+    the eight kernels launched (counted from 0 just before the leg).
+    Then ``nan_localizer`` on the leg's rolling checkpoint finds no
+    nonfinite step in ``CONV_LOCALIZER_STEPS`` steps, and on a copy with
+    one weight of the masked GAT layer set to inf names that layer's call
+    into #5 first.  Last, Queue 3 item B on the trained weights
+    (``checkpoint_top_res``): the bf16 kernel path against the f32 plain
+    path over the 2,048 dev questions, for the config of record and the
+    masks variant where its parameters have the same shapes.  Returns the
+    leg's launch counts."""
+    import torch
+    from isubgvqa_tpu_torch import (bf16_agreement, nan_localizer, ops,
+                                    train_convergence)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    root = tempfile.mkdtemp(prefix="chip_smoke_conv_")
+    try:
+        args = train_convergence.get_argparser().parse_args(
+            ["--samplers", "simple", "--epochs", str(epochs),
+             "--output_root", root, "--out", os.path.join(root, "run.json")])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train_convergence.run_sampler("simple", args, dev)
+        torch.cuda.synchronize()
+        leg_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        rows = run["epochs"]
+        for r in rows:
+            log(f"[16 convergence] {json.dumps(r)}")
+        bad = [r["epoch"] for r in rows
+               if not (np.isfinite(r["train_loss"])
+                       and np.isfinite(r["val_loss"])
+                       and r["skipped_steps"] == 0)]
+        if bad or len(rows) != epochs:
+            raise AssertionError(f"convergence: {len(rows)} epochs, "
+                                 f"nonfinite or skipped in epochs {bad}")
+        if not run["best_val_acc"] >= min_acc:
+            raise AssertionError(f"convergence: best validation accuracy "
+                                 f"{run['best_val_acc']} % < {min_acc} %")
+        idle = [k for k in KERNELS if not counts.get(k)]
+        if idle:
+            raise AssertionError(f"convergence: no launch of {idle}")
+        secs = [r["epoch_s"] for r in rows]
+        log(f"[16 convergence] simple {epochs} epochs in {leg_s:.1f} s "
+            f"(epoch {min(secs)}-{max(secs)} s, median "
+            f"{statistics.median(secs)}), best val acc {run['best_val_acc']}"
+            f" % (bound {min_acc}), lowest val loss {run['lowest_val_loss']}"
+            f", {run['params']} params; mask stats "
+            f"{json.dumps(run['final_mask_stats'])}; launches "
+            f"{json.dumps(counts)}; {smi}")
+        # the localizer: a clean checkpoint, then one weight poisoned
+        out_dir = os.path.join(root, "simple")
+        ckpt = os.path.join(out_dir, "checkpoint")
+        t0 = time.perf_counter()
+        lines = []
+        rep = nan_localizer.localize(ckpt, CONV_LOCALIZER_STEPS, device=dev,
+                                     say=lines.append)
+        if rep["offender"] or lines[-1] != "no nonfinite step found" or any(
+                bad for _, bad in rep["health"]):
+            raise AssertionError(f"localizer, clean: {lines}")
+        steps = rep["steps"]
+        log(f"[16 convergence] localizer, clean checkpoint: "
+            f"{len(steps)} steps, loss {min(s[2] for s in steps):.4f}-"
+            f"{max(s[2] for s in steps):.4f}, grad norm "
+            f"{min(s[3] for s in steps):.3e}-{max(s[3] for s in steps):.3e}"
+            f": {lines[-1]} ({time.perf_counter() - t0:.1f} s)")
+        blob = torch.load(ckpt, map_location="cpu", weights_only=True)
+        blob["state_dict"][CONV_POISON][0, 0] = float("inf")
+        poisoned = os.path.join(root, "poisoned")
+        torch.save(blob, poisoned)
+        shutil.copy(ckpt + ".meta.json", poisoned + ".meta.json")
+        del blob
+        t0 = time.perf_counter()
+        lines = []
+        rep = nan_localizer.localize(poisoned, CONV_LOCALIZER_STEPS,
+                                     device=dev, say=lines.append)
+        named = rep["forward"][0][0] if rep["forward"] else None
+        if not (rep["offender"] and named == CONV_POISONED
+                and rep["health"][0][1] == [CONV_POISON]):
+            raise AssertionError(f"localizer, poisoned: {lines}")
+        log(f"[16 convergence] localizer, {CONV_POISON}[0, 0] = inf: "
+            f"{rep['health'][0][0]} {rep['health'][0][1]}; first nonfinite "
+            f"outputs {rep['forward'][:3]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        # Queue 3 item B on the trained weights
+        top = os.path.join(out_dir, "checkpoint_top_res")
+        for name, over in CONV_VARIANTS.items():
+            t0 = time.perf_counter()
+            res = bf16_agreement.agreement(top, dev, over=over,
+                                           say=lambda s: None)
+            if "skipped" in res:
+                log(f"[16 convergence] item B, {name}: not run, "
+                    f"{res['skipped']}")
+                continue
+            acc = res["accuracy"]
+            log(f"[16 convergence] item B, {name}, trained weights (val "
+                f"acc bf16 kernels / bf16 plain / f32 plain "
+                f"{acc['bf16_kernels']:.3f} / {acc['bf16_plain']:.3f} / "
+                f"{acc['f32_plain']:.3f} %): top-1 agreement with f32 plain "
+                f"of the bf16 kernels {res['agree_f32_plain']}/{res['real']}"
+                f", of bf16 plain {res['plain_bf16_agree_f32_plain']}/"
+                f"{res['real']}; of the kernels' disagreements "
+                f"{res['also_bf16_plain']} shared by bf16 plain and "
+                f"{res['inside_rounding']} inside the rounding margin "
+                f"(twice the row's bf16 plain - f32 plain logit "
+                f"difference); bf16 kernels against bf16 plain "
+                f"{res['agree_bf16_plain']}/{res['real']}; "
+                f"{res['node_mask_rows']} rows with another node mask; f32 "
+                f"kernels against plain max abs "
+                f"{res['f32_kernel_max_abs']:.3g} of logits up to "
+                f"{res['logit_scale']:.3g} ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[16 convergence] phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3475,6 +3610,8 @@ def main() -> int:
                          for k, v in phase_native_ddp(smi).items()})
     torch.cuda.empty_cache()
     bench_counts.update(phase_checkpoints(smi))
+    torch.cuda.empty_cache()
+    bench_counts["convergence"] = phase_convergence(smi)
     line = []
     for k, (src, replaces) in KERNELS.items():
         r = entries[(k, torch.bfloat16)]

@@ -7,10 +7,12 @@
 The same flags and defaults map onto :class:`~isubgvqa_tpu_torch.config.Config`,
 the reference's flags that it ignores included; ``--scale_factor``
 scales batch and lr; a resume adopts the checkpoint's config up front
-and ``-e`` restores the model only.  Only ``--device`` differs: it
-defaults to the card, and ``cpu`` runs the plain PyTorch path.  Every
-model variant runs (``--text_sampling``, ``--use_all_instrs``,
-``--concat_instr``, ``--use_global_mask``, ``--interpretable_mode``,
+and ``-e`` restores the model only.  Two flags are the port's own:
+``--device`` defaults to the card, and ``cpu`` runs the plain PyTorch
+path; ``--plain_layers`` runs the fused layers' plain versions on the
+card, a control for the kernels.  Every model variant runs
+(``--text_sampling``, ``--use_all_instrs``, ``--concat_instr``,
+``--use_global_mask``, ``--interpretable_mode``,
 ``--node_classification``, ``--use_instruction 0``, ``--use_topk 0``).
 
 Data-parallel training runs one process per card under ``torchrun`` (the
@@ -99,6 +101,10 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain PyTorch path)")
+    p.add_argument("--plain_layers", action="store_true",
+                   help="run the fused layers' plain PyTorch versions on "
+                        "the card in place of their kernels, in training "
+                        "and eval (a control for the kernels)")
     p.add_argument("--launcher", choices=["none", "pytorch", "slurm", "mpi"],
                    default="none")
     p.add_argument("--gpus", type=int, default=None)
@@ -160,8 +166,8 @@ def check_cli_supported(cfg: Config, world: int = 1) -> None:
     if cfg.model_parallel > 1:
         raise NotImplementedError(
             f"model_parallel={cfg.model_parallel}: the port has no tensor "
-            f"parallelism, only data parallelism (ROADMAP.md, Queue 1 "
-            f"item 13)")
+            f"parallelism yet, only data parallelism (ROADMAP.md, Queue 1 "
+            f"items 13 and 18)")
     if cfg.num_data_shards not in (None, world):
         raise NotImplementedError(
             f"num_data_shards={cfg.num_data_shards} but the process group "
@@ -183,6 +189,7 @@ def main(argv=None):
 
     from . import parallel
     from .models.build import resolve_device
+    from .models.fused_sites import plain_layers
 
     if args.device is None and "LOCAL_RANK" in os.environ \
             and torch.cuda.is_available():
@@ -193,7 +200,8 @@ def main(argv=None):
                   and parallel.init_distributed(device))
     try:
         check_cli_supported(cfg, parallel.world_size())
-        return _run(cfg, device)
+        with plain_layers(args.plain_layers):
+            return _run(cfg, device)
     finally:
         if owns_group:
             parallel.shutdown()

@@ -26,7 +26,8 @@ here too, as its ``ops/__init__.py`` exports them.
 
 from .dense import dense_topk_mask, from_dense_batch, to_dense_batch
 from .gat_kernel import fused_gat_layer, fused_gat_layer_plain
-from .gat_train import fused_gatconv, fused_gatconv_plain
+from .gat_train import (fused_gat_layer_train, fused_gat_layer_train_plain,
+                        fused_gatconv, fused_gatconv_plain)
 from .metalayer_kernel import fused_metalayer, fused_metalayer_plain
 from .metalayer_train import (fused_metalayer_train,
                               fused_metalayer_train_plain)
@@ -67,6 +68,7 @@ __all__ = [
     "fused_metalayer_plain", "fused_encoder_layer",
     "fused_encoder_layer_plain", "fused_decoder_layer",
     "fused_decoder_layer_plain", "fused_gatconv", "fused_gatconv_plain",
+    "fused_gat_layer_train", "fused_gat_layer_train_plain",
     "fused_metalayer_train", "fused_metalayer_train_plain",
     "fused_encoder_layer_train", "fused_encoder_layer_train_plain",
     "fused_decoder_layer_train", "fused_decoder_layer_train_plain",

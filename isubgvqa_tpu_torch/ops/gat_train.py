@@ -258,3 +258,13 @@ def fused_gat_layer_train(h, xf, instr, gate, src, dst, edge_mask,
                                 {k: params[k] for k in CONV_KEYS})
     return gat_head_plain(h, conv, instr, node_mask, params,
                           gate if apply_mask_to_h else None), alpha
+
+
+def fused_gat_layer_train_plain(h, xf, instr, gate, src, dst, edge_mask,
+                                node_mask, e_attr, params,
+                                apply_mask_to_h: bool = False):
+    """:func:`fused_gat_layer_train` with the conv's plain version."""
+    conv, alpha = fused_gatconv_plain(xf, gate, src, dst, edge_mask, e_attr,
+                                      {k: params[k] for k in CONV_KEYS})
+    return gat_head_plain(h, conv, instr, node_mask, params,
+                          gate if apply_mask_to_h else None), alpha

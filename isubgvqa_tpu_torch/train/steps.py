@@ -108,10 +108,11 @@ def make_train_step(model: ISubGVQA, optimizer: Optimizer, cfg: Config):
     return train_step
 
 
-def make_eval_step(model: ISubGVQA, cfg: Config):
-    """Returns ``eval_step(state, batch, generator=None) -> metrics``: the
-    no-grad eval forward on the training model (running statistics, the
-    sampler's eval branch)."""
+def make_eval_step(model: ISubGVQA, cfg: Config, return_output: bool = False):
+    """Returns ``eval_step(state, batch, generator=None) -> metrics`` (or
+    ``(metrics, ModelOutput)`` with ``return_output``): the no-grad eval
+    forward on the training model (running statistics, the sampler's eval
+    branch)."""
 
     def eval_step(state: TrainState, batch: GraphBatch,
                   generator: Optional[torch.Generator] = None):
@@ -122,6 +123,8 @@ def make_eval_step(model: ISubGVQA, cfg: Config):
                                       batch.sample_mask)
             metrics = _metrics(out.logits, batch.labels, batch.sample_mask,
                                loss)
+        if return_output:
+            return metrics, out
         return metrics
 
     return eval_step
