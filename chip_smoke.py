@@ -187,8 +187,27 @@ script exits non-zero):
     inside its rounding margin), for the config of record and,
     where its parameters have the same shapes, the masks (0.3, 1, 0.5,
     0.15) variant;
+17. tensor parallelism (the ``model`` group of 2 ranks) at the full width
+    of the config of record: (a) 1 x 2 and (b) 2 x 2 spawned processes
+    (Gloo on one card, NCCL with a card each; the backend printed): one
+    f32 step against one process on the same global batch, weights,
+    masks and noise under phase 9's bounds (the tables' gradients and
+    updated values gathered; the parameters within rtol 1e-5 / atol
+    1e-6), then 5 (a) or 2 (b) bf16 steps: losses, grad norms, ms a step
+    beside one process's, #5-#8 launched every step, each rank's held
+    table elements (half of one process's) and peak memory; (c)
+    ``torchrun --nproc_per_node=2 -m isubgvqa_tpu_torch.cli
+    --model_parallel 2 --dist_backend gloo`` trains an epoch, rank 0's
+    checkpoint (whole tables) serves 64 questions in
+    ``Predictor.from_checkpoint`` and resumes in one process for one more
+    epoch;
+18. the tools: ``profile_breakdown`` at B = 2048 on the (128, 32)
+    bucket by kernel family (shares adding to 100 +- 0.1 %, the three
+    largest families phase 10's) and at the train step (B = 256),
+    ``profile_components`` (five rows at B = 256, CUDA events) and
+    ``bench_host_collate`` over the eight buckets at 2048;
 then the per-kernel JSON line (all eight kernels, with the bench's
-launches, phase 11's, 12's, 13's, 14's, 15's and 16's among them, beside the
+launches, phase 11's, 12's, 13's, 14's, 15's, 16's, 17's and 18's among them, beside the
 main path's, and #1's and #5's times at the variants' shapes) and the
 final ``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
 the serving model is built.
@@ -375,7 +394,7 @@ def phase_kernels(model, device):
     """Each kernel against its plain version; returns the JSON entries."""
     import torch
     import torch.nn.functional as F
-    from isubgvqa_tpu_torch import ops
+    from isubgvqa_tpu_torch import ops, profile_breakdown
     from isubgvqa_tpu_torch.ops import flops as FL
     from isubgvqa_tpu_torch.ops import gat_kernel as G
     from isubgvqa_tpu_torch.ops import metalayer_kernel as M
@@ -408,7 +427,8 @@ def phase_kernels(model, device):
             # first kernel of its window, which leaves one family odd
             counts = {}
             device_profile(lambda: (fn(), fn()), counts)
-            port = {k: -(-v // 2) for k, v in counts.items() if k != OTHER}
+            port = {k: -(-v // 2) for k, v in counts.items()
+                    if k != profile_breakdown.OTHER}
             out["port_launches"] = sum(port.values())
             log(f"[3 kernels] {key} {info} bfloat16 port kernel launches a "
                 f"call: {out['port_launches']} {json.dumps(port)}")
@@ -686,6 +706,7 @@ def device_profile(fn, launches=None):
     kernels by name, everything else as "other (PyTorch)"); ``launches``,
     a dict, receives the count of device events by family."""
     import torch
+    from isubgvqa_tpu_torch.profile_breakdown import kernel_family
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -698,25 +719,13 @@ def device_profile(fn, launches=None):
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA") \
                 and ev.device_time_total > 0:
-            fam = next((k for k in KERNEL_FAMILIES if k in ev.name), OTHER)
+            fam = kernel_family(ev.name)
             families[fam] = families.get(fam, 0.0) + ev.device_time_total / 1e3
             if launches is not None:
                 launches[fam] = launches.get(fam, 0) + 1
     return wall_ms, families
 
 
-# the port's kernels by name, the most specific first
-KERNEL_FAMILIES = ("gemm_any", "gemm_bwd", "gemm_sm90", "gemm_gather",
-                   "gemm", "reduce_rows", "colsum",
-                   "gat_edge_bwd", "gat_edge", "graph_norm_bwd", "graph_norm",
-                   "graph_index",
-                   "attention_bwd", "attention_mma", "attention", "ln_bwd",
-                   "residual_ln",
-                   "relu_bwd", "scatter_mean_bwd", "scatter_mean",
-                   "scatter_rows", "instr_gelu")
-
-
-OTHER = "other (PyTorch)"
 
 
 def by_kernel(families) -> str:
@@ -1580,6 +1589,7 @@ def phase_bench():
         torch.cuda.synchronize()
         plain_wall = (time.perf_counter() - t0) * 1e3
         wall, fam = device_profile(chunk)
+        BENCH_FAMILIES[str(key)] = fam
         busy_ms = sum(fam.values())
         log(f"[10 bench] busy {key}: " + json.dumps({
             "batches": len(batches), "wall_ms": plain_wall,
@@ -3568,6 +3578,456 @@ def phase_convergence(smi, epochs=CONV_EPOCHS, min_acc=CONV_MIN_ACC):
     return counts
 
 
+
+# Phase 17: tensor parallelism at full width.  The ranks share the one card
+# when there are fewer cards than ranks (a Gloo group: NCCL refuses two
+# ranks on one card), so the ms measure correctness and overhead, not
+# scaling.
+TP_M = 2                     # model ranks
+TP_BF16_STEPS = {1: 5, 2: 2}  # timed bf16 steps, by data ranks
+TP_GROUP_TIMEOUT = 180       # s, a collective's
+TP_JOIN_TIMEOUT = 420        # s, a spawned job's
+TP_CLI_SIZE = 2048           # the torchrun job's training questions: a few steps
+TP_SERVED = 64
+TP_RTOL, TP_ATOL = 1e-5, 1e-6   # updated parameters against one process
+TABLES = ("text_vocab_embedding.token_embedding.weight", "logit_fc.weight")
+
+
+def tp_backend(world: int) -> str:
+    """NCCL with a card for each rank, else Gloo (all ranks on the cards
+    there are)."""
+    import torch
+
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def tp_inputs(work, n_data):
+    """The config of record at batch 256 and the global batches of the
+    job (``n_data`` data ranks): one f32 parity batch and the bf16 steps'
+    batches over two or more node buckets, each ``n_data x 256``
+    questions of one bucket; saved under ``work``."""
+    import torch
+    from isubgvqa_tpu_torch.data import AnswerMap, GraphBatch, SceneGraphVocab
+
+    cfg = train_config()
+    vocab = SceneGraphVocab.build("", seed=cfg.seed)
+    answers = AnswerMap.build("", cfg.num_answers)
+    cfg = dataclasses.replace(cfg, num_answers=len(answers))
+    n_steps = TP_BF16_STEPS[n_data] + 1           # a warm-up before them
+    _, batches = training_batches(cfg, vocab, answers,
+                                  n_data * (n_steps + 1) * 2)
+    by_key = {}
+    for key, b in batches:
+        by_key.setdefault(key, []).append(b)
+    keys = sorted(by_key)
+    glob = []
+    for i in range(n_steps + 1):
+        parts = by_key[keys[i % len(keys)]]
+        j = (i // len(keys)) * n_data
+        glob.append(GraphBatch(**{
+            f: torch.cat([getattr(p, f) for p in parts[j:j + n_data]])
+            for f in GraphBatch.__dataclass_fields__}))
+    path = os.path.join(work, f"tp_inputs_{n_data}.pt")
+    torch.save({"cfg": cfg.to_json(), "batches": glob,
+                "keys": [keys[i % len(keys)] for i in range(n_steps + 1)],
+                "steps_per_epoch": 8}, path)
+    return path
+
+
+def tp_steps(inputs, n_data, dev, record):
+    """This process's share of the job in ``inputs``: one f32 step (TF32
+    off) on the first global batch, then a warm-up and the timed bf16
+    steps; into ``record``: the f32 step's loss, grad norm, node mask
+    rows, gathered gradients and updated parameters (rank 0, or one
+    process), the bf16 steps' losses, grad norms and ms, the launches of
+    the bf16 steps, the held elements of the two tables and the peak
+    memory of the bf16 steps above what the process held before."""
+    import torch
+    from isubgvqa_tpu_torch import ops, parallel
+    from isubgvqa_tpu_torch.config import Config
+    from isubgvqa_tpu_torch.data import GraphBatch, SceneGraphVocab
+    from isubgvqa_tpu_torch.train import create_train_state, make_train_step
+    from isubgvqa_tpu_torch.train.checkpoint import state_payload
+
+    base = torch.cuda.memory_allocated(dev)   # held before: earlier phases'
+    blob = torch.load(inputs, weights_only=False)
+    cfg = Config.from_json(blob["cfg"])
+    vocab = SceneGraphVocab.build("", seed=cfg.seed)
+    d, n = parallel.data_rank(), parallel.data_size()
+    main_rank = parallel.rank() == 0
+
+    def mine(b):
+        rows = b.labels.shape[0] // n
+        return GraphBatch(**{f: getattr(b, f)[d * rows:(d + 1) * rows]
+                             for f in GraphBatch.__dataclass_fields__}).to(dev)
+
+    def gathered(p, t):
+        dim = parallel.shard_dim(p)
+        return t if dim is None else parallel.gather_shard(t, dim)
+
+    # the f32 step
+    st = create_train_state(dataclasses.replace(cfg, compute_dtype="float32"),
+                            vocab, blob["steps_per_epoch"], device=dev)
+    cut = parallel.shard_model_(st.model)
+    params = dict(st.model.named_parameters())
+    record["held"] = sum(params[k].numel() for k in TABLES)
+    record["sharded"] = sorted(cut)
+    grads, masks = {}, []
+    opt_step = st.optimizer.step
+
+    def recorded():
+        for k, p in st.model.named_parameters():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            g = gathered(p, g)
+            if main_rank:
+                grads[k] = g.detach().cpu()
+        return opt_step()
+
+    st.optimizer.step = recorded
+    hook = st.model.register_forward_hook(
+        lambda mod, args, out: masks.append(out.node_mask.detach().cpu()))
+    st, m = make_train_step(st.model, st.optimizer, st.model.cfg)(
+        st, mine(blob["batches"][0]))
+    hook.remove()
+    record["f32"] = {"loss": float(m["loss_sum"] / m["count"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "node_mask": masks[0], "data_rank": d}
+    payload = state_payload(st, 0, cfg)      # the tables gathered
+    if main_rank:
+        record["f32"]["grads"] = grads
+        record["f32"]["params"] = payload["state_dict"]
+    del st, payload, grads, params
+    torch.cuda.empty_cache()
+
+    # the bf16 steps
+    st = create_train_state(cfg, vocab, blob["steps_per_epoch"], device=dev)
+    parallel.shard_model_(st.model)
+    step = make_train_step(st.model, st.optimizer, cfg)
+    st, m = step(st, mine(blob["batches"][1]))          # warm-up
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    rows = []
+    for key, b in zip(blob["keys"][2:], blob["batches"][2:]):
+        b = mine(b)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        st, m = step(st, b)
+        loss, norm = float(m["loss_sum"] / m["count"]), float(m["grad_norm"])
+        torch.cuda.synchronize(dev)
+        rows.append({"bucket": list(key), "loss": loss, "grad_norm": norm,
+                     "ms": (time.perf_counter() - t0) * 1e3})
+    record["bf16"] = rows
+    record["launches"] = ops.launch_counts(ops.TRAIN_WRAPPERS)
+    record["max_memory_allocated"] = (torch.cuda.max_memory_allocated(dev)
+                                      - base)
+
+
+def tp_rank_main(rank, world, model_parallel, work, inputs, backend):
+    """One rank of a spawned tensor-parallel job on the card(s)."""
+    import datetime
+
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from isubgvqa_tpu_torch import parallel
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    parallel.init_distributed(
+        dev, timeout=datetime.timedelta(seconds=TP_GROUP_TIMEOUT),
+        init_method="file://" + os.path.join(work, f"store{world}"),
+        backend=backend)
+    try:
+        parallel.init_mesh(model_parallel)
+        record = {"rank": rank, "backend": torch.distributed.get_backend()}
+        tp_steps(inputs, world // model_parallel, dev, record)
+        torch.save(record, os.path.join(work, f"tp{world}_rank{rank}.pt"))
+    finally:
+        parallel.shutdown()
+
+
+def tp_job(world, work, inputs):
+    """Spawn ``world`` ranks of ``TP_M`` model ranks each; returns their
+    records."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    backend = tp_backend(world)
+    ctx = tmp.start_processes(tp_rank_main, args=(world, TP_M, work, inputs,
+                                                  backend),
+                              nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + TP_JOIN_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{world}-rank job: no end in "
+                                     f"{TP_JOIN_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(os.path.join(work, f"tp{world}_rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def tp_compare(tag, got, want, masks):
+    """The f32 TP step against one process's under phase 9's bounds: loss
+    within 1e-5 relative, grad norm 1e-3, the node mask rows identical
+    (``masks``: each data rank's rows), every gradient leaf (the tables
+    gathered) within 3e-3 of its RMS floored at 1e-3 of the largest
+    leaf's; the updated parameters within rtol 1e-5 / atol 1e-6."""
+    import torch
+
+    g, w = got["f32"], want["f32"]
+    if not abs(g["loss"] - w["loss"]) <= 1e-5 * abs(w["loss"]):
+        raise AssertionError(f"{tag}: loss {g['loss']} vs {w['loss']}")
+    if not abs(g["grad_norm"] - w["grad_norm"]) <= 1e-3 * w["grad_norm"]:
+        raise AssertionError(f"{tag}: grad norm {g['grad_norm']} vs "
+                             f"{w['grad_norm']}")
+    full = w["node_mask"]
+    rows = full.shape[0] // len(masks)
+    for d, mask in masks.items():
+        if not torch.equal(mask, full[d * rows:(d + 1) * rows]):
+            raise AssertionError(f"{tag}: data rank {d}'s node mask differs")
+    rms = lambda t: t.double().square().mean().sqrt().item()  # noqa: E731
+    floor = 1e-3 * max(rms(x) for x in w["grads"].values())
+    errs = sorted(((rms(g["grads"][k] - x) / max(rms(x), floor), k)
+                   for k, x in w["grads"].items()), reverse=True)
+    if set(g["grads"]) != set(w["grads"]) or not errs[0][0] <= 3e-3:
+        raise AssertionError(f"{tag}: gradient {errs[0][1]} differs by "
+                             f"{errs[0][0]:.3g} of its RMS")
+    bad = {}
+    for k, x in w["params"].items():
+        diff = (g["params"][k].double() - x.double()).abs()
+        over = diff - (TP_ATOL + TP_RTOL * x.double().abs())
+        if float(over.max()) > 0:
+            bad[k] = float(diff.max())
+    if bad:
+        raise AssertionError(f"{tag}: updated parameters differ: {bad}")
+    return errs[0]
+
+
+def phase_tensor_parallel(smi):
+    """Phase 17: tensor parallelism at the full width of the config of
+    record (gumbel, k = 3, masks (1, 1, 1, 0.15), batch 256 a data rank,
+    the GQA-like mix over two or more node buckets).  (a) 1 x 2: two
+    spawned processes (Gloo on the one card, NCCL with a card each): one
+    f32 step against one process's from the same weights, batch, masks
+    and noise (:func:`tp_compare`), then a warm-up and 5 bf16 steps
+    (losses, grad norms, ms a step beside one process's), each of #5-#8
+    launched every step, each rank's held table elements and peak
+    memory.  (b) 2 x 2: four processes, 1 f32 step against one process
+    on the two data ranks' batches concatenated, and 2 bf16 steps.  (c)
+    ``torchrun --nproc_per_node=2 -m isubgvqa_tpu_torch.cli
+    --model_parallel 2 --dist_backend gloo`` trains an epoch; rank 0's
+    checkpoint serves 64 questions in ``Predictor.from_checkpoint`` and
+    resumes in one process for one more epoch.  Returns the launch
+    counts of the TP runs."""
+    import torch
+    from isubgvqa_tpu_torch import cli
+    from isubgvqa_tpu_torch.data import SyntheticGQA
+    from isubgvqa_tpu_torch.serve import Predictor
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    counts = {}
+    try:
+        for n_data in (1, 2):
+            world = n_data * TP_M
+            tag = f"[17 tp] {n_data} x {TP_M}"
+            t0 = time.perf_counter()
+            inputs = tp_inputs(root, n_data)
+            one = {}                 # the same steps in this process alone
+            tp_steps(inputs, 1, torch.device("cuda"), one)
+            torch.cuda.empty_cache()
+            ranks = tp_job(world, root, inputs)
+            worst, leaf = tp_compare(tag, ranks[0], one, {
+                r["f32"]["data_rank"]: r["f32"]["node_mask"]
+                for r in ranks if r["rank"] % TP_M == 0})
+            per_step = TP_BF16_STEPS[n_data]
+            for r in ranks:
+                if r["sharded"] != sorted(TABLES):
+                    raise AssertionError(f"{tag}: rank {r['rank']} shards "
+                                         f"{r['sharded']}")
+                if not r["held"] * TP_M == one["held"]:
+                    raise AssertionError(f"{tag}: rank {r['rank']} holds "
+                                         f"{r['held']} of {one['held']}")
+                low = {k: v for k, v in r["launches"].items()
+                       if v < per_step}
+                if low:
+                    raise AssertionError(f"{tag}: rank {r['rank']} launched "
+                                         f"{low} in {per_step} steps")
+                if not all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                           for s in r["bf16"]):
+                    raise AssertionError(f"{tag}: nonfinite bf16 step "
+                                         f"{r['bf16']}")
+            counts[f"tp_{n_data}x{TP_M}"] = ranks[0]["launches"]
+            ms = [s["ms"] for s in ranks[0]["bf16"]]
+            one_ms = [s["ms"] for s in one["bf16"]]
+            log(f"{tag} backend {ranks[0]['backend']}, {world} processes on "
+                f"{torch.cuda.device_count()} card(s), global batch "
+                f"{n_data * TRAIN_B}: f32 step (TF32 off) against one "
+                f"process: loss {ranks[0]['f32']['loss']:.7f} vs "
+                f"{one['f32']['loss']:.7f}, grad norm "
+                f"{ranks[0]['f32']['grad_norm']:.6f} vs "
+                f"{one['f32']['grad_norm']:.6f}, node mask identical, worst "
+                f"gradient leaf {worst:.3g} of its RMS ({leaf}), updated "
+                f"parameters within rtol {TP_RTOL} / atol {TP_ATOL}, tables "
+                f"gathered")
+            log(f"{tag} bf16 steps (rank 0): " + json.dumps(ranks[0]["bf16"])
+                + f"; ms a step median {statistics.median(ms):.1f} against "
+                f"{statistics.median(one_ms):.1f} in one process on the same "
+                f"global batch ({world} processes share the card(s): "
+                f"correctness and overhead, not scaling); launches "
+                f"{json.dumps(ranks[0]['launches'])} in {per_step} steps")
+            log(f"{tag} per rank: the two tables' held elements "
+                f"{[r['held'] for r in ranks]} against {one['held']} in one "
+                f"process; max_memory_allocated of the bf16 steps, above "
+                f"what the process held before, GiB "
+                f"{[round(r['max_memory_allocated'] / 2 ** 30, 3) for r in ranks]}"
+                f" against {one['max_memory_allocated'] / 2 ** 30:.3f}; "
+                f"{time.perf_counter() - t0:.1f} s; {smi}")
+            del one, ranks
+
+        # (c) the CLI under torchrun, then serving and a one-process resume
+        out, out1 = os.path.join(root, "cli"), os.path.join(root, "resumed")
+        argv = ["--synthetic", "--synthetic_shape_mix", "gqa",
+                "--synthetic_size", str(TP_CLI_SIZE), "--sampler_type",
+                "gumbel", "--sample_k", "3", "--mgat_masks", "1", "1", "1",
+                "0.15", "--compute_dtype", "bfloat16", "--batch-size",
+                str(TRAIN_B), "--meta_dir", ""]
+        runner = shutil.which("torchrun")
+        cmd = ([runner] if runner else
+               [sys.executable, "-m", "torch.distributed.run"])
+        cmd += ["--standalone", f"--nproc_per_node={TP_M}", "-m",
+                "isubgvqa_tpu_torch.cli", *argv, "--epochs", "1",
+                "--model_parallel", str(TP_M), "--dist_backend", "gloo",
+                "--output_dir", out]
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=DDP_TIMEOUT)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun --model_parallel {TP_M} exited "
+                                 f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        text = proc.stdout
+        line = f"data parallel: 1 ranks x model parallel: {TP_M}"
+        if line not in text or not metric_lines(text):
+            raise AssertionError(f"torchrun's output:\n{text[-3000:]}")
+        ckpt = os.path.join(out, "checkpoint")
+        blob = torch.load(ckpt, map_location="cpu", weights_only=True)
+        shapes = {k: tuple(blob["state_dict"][k].shape) for k in TABLES}
+        pred = Predictor.from_checkpoint(ckpt, device="cuda")
+        ds = SyntheticGQA(pred.vocab, pred.answers, size=TP_SERVED, seed=0,
+                          shape_mix="gqa")
+        results = pred.predict([s[2] for s in ds.samples],
+                               [ds.store.scene_graphs[s[1]]
+                                for s in ds.samples], batch_size=32, seed=0)
+        if len(results) != TP_SERVED or not all(
+                np.isfinite(r.confidence) for r in results):
+            raise AssertionError("serving the TP checkpoint failed")
+        del pred
+        trainer, resumed = silent(cli.main, argv + [
+            "--epochs", "2", "--resume", ckpt, "--output_dir", out1])
+        steps = int(re.findall(r"=> step (\d+), optimizer count", resumed)[0])
+        if not ("Epoch: [1]" in resumed and trainer.state.step > steps
+                and trainer.cfg.model_parallel == 1):
+            raise AssertionError(f"the one-process resume:\n{resumed[-3000:]}")
+        log(f"[17 tp] torchrun --nproc_per_node={TP_M} -m "
+            f"isubgvqa_tpu_torch.cli --model_parallel {TP_M} --dist_backend "
+            f"gloo: 1 epoch of {TP_CLI_SIZE} questions in {cli_s:.1f} s "
+            f"({len(metric_lines(text))} metric lines); rank 0's checkpoint "
+            f"holds the whole tables {shapes}; Predictor.from_checkpoint "
+            f"served {TP_SERVED} questions; one process resumed it at step "
+            f"{steps} and trained epoch 1 to step {trainer.state.step}")
+        del trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"[17 tp] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# Phase 18: the port's profiling and host-collate tools.
+TOOLS_ITERS = 4
+TOOLS_BUCKET = (128, 32)          # phase 10's parity bucket
+BENCH_FAMILIES = {}               # phase 10's device time by kernel family
+
+
+def phase_tools():
+    """Phase 18: ``profile_breakdown`` at B = 2048 on the (128, 32) bucket
+    (inference, by family: the shares add to 100 +- 0.1 % and the three
+    largest families are phase 10's for that bucket) and at the train
+    step (B = 256); ``profile_components`` (five rows at B = 256);
+    ``bench_host_collate`` over the eight buckets at 2048.  Returns the
+    launch counts of the profiled runs."""
+    import torch
+    from isubgvqa_tpu_torch import (bench, bench_host_collate, ops,
+                                    profile_breakdown, profile_components)
+
+    t_phase = time.perf_counter()
+    counts = {}
+
+    def top3(fam):
+        return sorted(sorted(fam, key=lambda k: -fam[k])[:3])
+
+    for train, b in ((False, BENCH_B), (True, BENCH_TRAIN_B)):
+        name = "breakdown_train" if train else "breakdown_forward"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = profile_breakdown.run(bench._cfg("gumbel", b, "bfloat16"),
+                                    TOOLS_BUCKET, train=train,
+                                    iters=TOOLS_ITERS, group=True)
+        counts[name] = ops.launch_counts(
+            ops.TRAIN_WRAPPERS if train else ops.EVAL_WRAPPERS)
+        shares = sum(r[2] for r in out["rows"])
+        fam = {r[0]: r[1] for r in out["rows"]}
+        if not (abs(shares - 100.0) <= 0.1 and out["busy_us_per_batch"] > 0):
+            raise AssertionError(f"{name}: shares add to {shares}")
+        print(profile_breakdown.format_table(out, top=8), flush=True)
+        want = BENCH_FAMILIES.get(str(TOOLS_BUCKET))
+        if not train and want is not None and top3(fam) != top3(want):
+            raise AssertionError(f"{name}: top families {top3(fam)}, phase "
+                                 f"10's {top3(want)}")
+        log(f"[18 tools] profile_breakdown {'--train ' if train else ''}"
+            f"--bucket {TOOLS_BUCKET[0]} {TOOLS_BUCKET[1]} --batch-size {b} "
+            f"--group: shares add to {shares:.3f} %, busy share "
+            f"{out['busy_share']:.1%}, top families {top3(fam)}"
+            + ("" if train else f" (phase 10's: "
+               f"{top3(want) if want else 'not measured'})"))
+        del out
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    comp = profile_components.run(bench._cfg("gumbel", TRAIN_B, "bfloat16"),
+                                  (32, 32), iters=8)
+    counts["components"] = ops.launch_counts(ops.EVAL_WRAPPERS)
+    if not (len(comp["rows"]) == 5 and all(
+            np.isfinite(r["ms"]) and r["ms"] > 0 for r in comp["rows"])):
+        raise AssertionError(f"profile_components: {comp['rows']}")
+    log("[18 tools] profile_components (B = 256, bucket (32, 32), CUDA "
+        "events): " + ", ".join(f"{r['component']} {r['ms']:.3f} ms"
+                                for r in comp["rows"]))
+    host = bench_host_collate.run(BENCH_B, reps=2)
+    if len(host["buckets"]) != 8:
+        raise AssertionError(f"bench_host_collate: buckets "
+                             f"{sorted(host['buckets'])}")
+    log("[18 tools] bench_host_collate (B = 2048, samples/s native / "
+        "python): " + ", ".join(
+            f"{k} {v['native']['samples_per_sec']:,.0f} / "
+            f"{v['python']['samples_per_sec']:,.0f}"
+            for k, v in host["buckets"].items()))
+    log(f"[18 tools] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3612,6 +4072,10 @@ def main() -> int:
     bench_counts.update(phase_checkpoints(smi))
     torch.cuda.empty_cache()
     bench_counts["convergence"] = phase_convergence(smi)
+    torch.cuda.empty_cache()
+    bench_counts.update({f"tensor_parallel.{k}": v for k, v in
+                         phase_tensor_parallel(smi).items()})
+    bench_counts.update({f"tools.{k}": v for k, v in phase_tools().items()})
     line = []
     for k, (src, replaces) in KERNELS.items():
         r = entries[(k, torch.bfloat16)]

@@ -22,10 +22,17 @@ counterpart of ``scripts/run_training_spmd.sh``)::
         --synthetic --epochs 2
 
 Each rank joins the process group (NCCL on cards, Gloo with ``--device
-cpu``), takes its card ``cuda:LOCAL_RANK`` and a batch of
-``--batch-size``, so the global batch is ``N`` times that.
-``--num_data_shards``, when given, must equal ``N``; ``--model_parallel``
-above 1 (the JAX mesh's tensor-parallel axis) raises.
+cpu``, or the backend ``--dist_backend`` names), takes its card
+``cuda:LOCAL_RANK`` (ranks beyond the cards share them in turn, which
+only Gloo allows) and a batch of ``--batch-size``.  ``--model_parallel
+M`` (the JAX mesh's tensor-parallel axis) groups the ``N`` ranks into
+``D = N / M`` data ranks of ``M`` model ranks, which hold a shard each of
+the token table and of ``logit_fc``; the global batch is ``D`` times
+``--batch-size``.  ``N`` must divide by ``M``, and ``--num_data_shards``,
+when given, must equal ``D``::
+
+    torchrun --standalone --nproc_per_node=4 -m isubgvqa_tpu_torch.cli \
+        --device cpu --model_parallel 2 --synthetic --epochs 1
 """
 
 from __future__ import annotations
@@ -121,7 +128,12 @@ def get_argparser() -> argparse.ArgumentParser:
                    help="data-parallel ranks: torchrun's world size (the "
                         "default), which a value given must equal")
     p.add_argument("--model_parallel", type=int, default=d.model_parallel,
-                   help="tensor-parallel ranks (the port runs 1)")
+                   help="tensor-parallel ranks: model ranks a data rank "
+                        "(they must divide torchrun's world size)")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="the process group's backend (default: NCCL on "
+                        "cards, Gloo on the CPU); gloo runs several ranks "
+                        "on one card")
     p.add_argument("--question_len", type=int, default=d.question_len)
     p.add_argument("--clip_weights", default=d.clip_weights,
                    help="pretrained CLIP text token/position tables "
@@ -160,19 +172,20 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 
 def check_cli_supported(cfg: Config, world: int = 1) -> None:
-    """Raise on what the port does not run: tensor parallelism (the JAX
-    mesh's ``model`` axis), or ``num_data_shards`` other than the
-    ``world`` size of the process group (ROADMAP item 13)."""
-    if cfg.model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={cfg.model_parallel}: the port has no tensor "
-            f"parallelism yet, only data parallelism (ROADMAP.md, Queue 1 "
-            f"items 13 and 18)")
-    if cfg.num_data_shards not in (None, world):
-        raise NotImplementedError(
+    """Raise on a layout that the ``world`` ranks of the process group
+    cannot take: ``model_parallel`` not dividing ``world``, or
+    ``num_data_shards`` other than ``world / model_parallel``."""
+    m = cfg.model_parallel
+    if m < 1 or world % m:
+        raise ValueError(
+            f"model_parallel={m} does not divide the {world} rank(s) of "
+            f"the process group: launch with torchrun --nproc_per_node="
+            f"<a multiple of {m}>")
+    if cfg.num_data_shards not in (None, world // m):
+        raise ValueError(
             f"num_data_shards={cfg.num_data_shards} but the process group "
-            f"has {world} rank(s): launch with torchrun --nproc_per_node="
-            f"{cfg.num_data_shards} (ROADMAP.md, Queue 1 item 13)")
+            f"has {world} rank(s) of {m} model rank(s) each: launch with "
+            f"torchrun --nproc_per_node={cfg.num_data_shards * m}")
 
 
 def main(argv=None):
@@ -197,7 +210,8 @@ def main(argv=None):
     else:
         device = resolve_device(args.device)
     owns_group = (not parallel.is_initialized()
-                  and parallel.init_distributed(device))
+                  and parallel.init_distributed(device,
+                                                backend=args.dist_backend))
     try:
         check_cli_supported(cfg, parallel.world_size())
         with plain_layers(args.plain_layers):
@@ -230,8 +244,9 @@ def _run(cfg: Config, device):
     say(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                if device.type == "cuda" else ""))
     if world_size() > 1:
-        say(f"data parallel: {world_size()} ranks, global batch "
-            f"{world_size() * cfg.batch_size}")
+        d = world_size() // cfg.model_parallel
+        say(f"data parallel: {d} ranks x model parallel: "
+            f"{cfg.model_parallel}, global batch {d * cfg.batch_size}")
     say(f"scaled batch size of {cfg.batch_size}")
     say(f"scaled learning rate of {cfg.lr}")
 
@@ -245,10 +260,13 @@ def _run(cfg: Config, device):
         if os.path.isfile(meta_path):
             with open(meta_path) as f:
                 ckpt_cfg = Config.from_json(json.dumps(json.load(f)["config"]))
+            # the layout is this launch's: a checkpoint has one format
+            # under every layout (train/checkpoint.py)
             cfg = dataclasses.replace(
                 ckpt_cfg, resume=resume_path, evaluate=cfg.evaluate,
                 pre_eval=cfg.pre_eval, output_dir=cfg.output_dir,
-                epochs=cfg.epochs)
+                epochs=cfg.epochs, model_parallel=cfg.model_parallel,
+                num_data_shards=cfg.num_data_shards)
 
     data = build_datasets(cfg, pin_memory=device.type == "cuda")
     # the classifier's width is the answer map's (1842 with the GQA

@@ -36,6 +36,9 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..data.batching import GraphBatch
+from ..parallel.mesh import (copy_to_model_region, model_size,
+                             reduce_from_model_region, shard_bounds,
+                             shard_dim)
 from ..sampling import SimpleConfig, simple_sample
 from .layers import keep_mask, linear, mlp
 from .mgat import MGAT, site_noise
@@ -112,6 +115,25 @@ class ISubGVQA(nn.Module):
                     p.data = p.data.to(dtype)
         return self
 
+    def _logits(self, fused: torch.Tensor, dtype: torch.dtype):
+        """``logit_fc``; under tensor parallelism each model rank holds
+        the weight's columns ``[m 512/M, (m+1) 512/M)`` (the JAX kernel's
+        rows), multiplies its slice of ``fused`` at ``dtype`` with f32
+        accumulation; the f32 partial logits are summed over the model
+        group, given the bias (held whole, at ``dtype``) and rounded to
+        ``dtype`` once.  (The JAX package's Dense rounds GSPMD's
+        partitioned dot to ``dtype`` and then adds the bias at ``dtype``;
+        in f32 the two are the same sums in another order.)"""
+        fc = self.logit_fc
+        if shard_dim(fc.weight) is None:
+            return linear(fused, fc, dtype)
+        start, cols = shard_bounds(fc.weight.shape[1] * model_size())
+        x = copy_to_model_region(fused).narrow(1, start, cols)
+        part = torch.matmul(x.to(dtype).float(),
+                            fc.weight.to(dtype).float().t())
+        return (reduce_from_model_region(part)
+                + fc.bias.to(dtype).float()).to(dtype)
+
     def forward(self, batch: GraphBatch,
                 generator: Optional[torch.Generator] = None,
                 noise: Union[None, torch.Tensor, Mapping] = None,
@@ -169,7 +191,7 @@ class ISubGVQA(nn.Module):
         if train and cfg.head_dropout > 0.0:
             fused = fused * keep_mask(fused.shape, cfg.head_dropout,
                                       generator, fused.device).to(dtype)
-        logits = linear(fused, self.logit_fc, dtype)
+        logits = self._logits(fused, dtype)
         if explainer:                               # isubgvqa.py:158-159
             return logits.float()
         return ModelOutput(logits=logits.float(), node_mask=node_mask,

@@ -201,11 +201,12 @@ class MaskedBatchNorm(nn.Module):
     statistics in place with keep factor 0.9, storing the unbiased
     variance ``var * count / max(count - 1, 1)`` as torch does.
 
-    In a data-parallel run the batch is every rank's rows, as under the
-    JAX package's ``axis_name`` psum: the count with the sum, then the
-    centred squares, are summed over the ranks by
-    :func:`~isubgvqa_tpu_torch.parallel.all_reduce_sum`, whose backward
-    sums their gradients over the ranks (``SyncBatchNorm``'s rule), so
+    In a data-parallel run the batch is every data rank's rows, as under
+    the JAX package's ``axis_name`` psum: the count with the sum, then the
+    centred squares, are summed over the data group by
+    :func:`~isubgvqa_tpu_torch.parallel.all_reduce_sum` (over the world
+    they would count each sample once for each model rank), whose
+    backward sums their gradients over it (``SyncBatchNorm``'s rule), so
     the statistics, the gradients and the running buffers agree on
     every rank."""
 

@@ -9,6 +9,12 @@ training each layer draws its four dropout keep masks from the step's
 generator and runs
 :func:`~isubgvqa_tpu_torch.ops.text_train.fused_encoder_layer_train`;
 the final LayerNorm stays plain torch (``question_encoder.py:122``).
+
+Under tensor parallelism (:mod:`~isubgvqa_tpu_torch.parallel`) each model
+rank holds rows ``[m V/M, (m+1) V/M)`` of the token table: an id outside
+them reads zero, and the ranks' partial embeddings are summed by
+``reduce_from_model_region`` (exact: one rank adds each row to zeros),
+whose backward leaves the table's gradient on its shard.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import torch.nn as nn
 
 from ..ops.text_kernel import fused_encoder_layer, ln_plain
 from ..ops.text_train import fused_encoder_layer_train
+from ..parallel.mesh import (model_size, reduce_from_model_region,
+                             shard_bounds, shard_dim)
 from .layers import EncoderLayer, TransformerStack, draw_encoder_dropout_masks
 
 
@@ -37,7 +45,17 @@ class TextEmbedding(nn.Module):
         """Token + position rows, each at ``dtype`` (flax ``Embed(dtype)``),
         summed at ``dtype``."""
         pos = torch.arange(ids.shape[1], device=ids.device)
-        tok = self.token_embedding(ids.long())
+        table = self.token_embedding.weight
+        ids = ids.long()
+        if shard_dim(table) is None:
+            tok = self.token_embedding(ids)
+        else:                         # this model rank's rows of the table
+            start, rows = shard_bounds(table.shape[0] * model_size())
+            local = ids - start
+            inside = (local >= 0) & (local < rows)
+            tok = self.token_embedding(torch.where(inside, local, 0))
+            tok = reduce_from_model_region(
+                tok.float() * inside[..., None]).to(table.dtype)
         dt = dtype or tok.dtype
         return tok.to(dt) + self.position_embedding(pos)[None].to(dt)
 

@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from ..parallel.mesh import all_reduce_, is_initialized
+from ..parallel.mesh import all_reduce_, data_size
 from .noise import perturbation
 from .topk import topk_mask
 
@@ -90,8 +90,8 @@ def init_aimle_state(device=None, initial_beta: float = 0.0,
 
 def _norms(*ts):
     """The L2 norm of each tensor over the global batch: in a
-    data-parallel run the ranks' squared sums are summed first."""
-    if not is_initialized():
+    data-parallel run the data ranks' squared sums are summed first."""
+    if data_size() == 1:
         return [torch.linalg.vector_norm(t) for t in ts]
     sq = all_reduce_(torch.stack([t.float().square().sum() for t in ts]))
     return list(torch.sqrt(sq))
@@ -138,7 +138,7 @@ class _AIMLETopK(torch.autograd.Function):
         # then takes the same beta step
         nnz = (grad3d != 0.0).sum().float()
         rows = float(grad3d.shape[0] * grad3d.shape[1])
-        if is_initialized():
+        if data_size() > 1:
             nnz, rows = all_reduce_(torch.stack([nnz,
                                                  nnz.new_full((), rows)]))
         decay = cfg.grad_norm_decay_rate

@@ -30,6 +30,14 @@ A file is written under a temporary name and renamed over the old one
 half-written checkpoint.  In a data-parallel run only rank 0 writes (the
 JAX package's ``save_on_master``), every rank waits at a barrier after
 each save, and every rank loads on resume.
+
+Under tensor parallelism rank 0 writes the full tables and their Adam
+moments, gathered over its model group (every rank of that group takes
+part), so the file has the format of a one-process checkpoint, as an
+orbax checkpoint of global arrays has in the JAX package; a load cuts
+the current layout's shard out of it.  A checkpoint written under one
+layout thus resumes under any other, and serves in
+:meth:`~isubgvqa_tpu_torch.serve.Predictor.from_checkpoint`.
 """
 
 from __future__ import annotations
@@ -41,7 +49,9 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import Config
-from ..parallel.mesh import barrier, is_main_process
+from ..parallel.mesh import (barrier, data_rank, gather_shard,
+                             is_main_process, model_size, shard_dim,
+                             shard_of)
 from ..sampling.aimle import AIMLE_FIELDS
 from .state import TrainState
 
@@ -49,15 +59,34 @@ from .state import TrainState
 TRAINING_KEYS = ("optimizer", "count", "notfinite_count", "step")
 
 
+def _gathers_payload() -> bool:
+    """Whether this rank builds the payload: rank 0, and under tensor
+    parallelism every rank of its model group (the gathers are
+    collectives)."""
+    return is_main_process() or (model_size() > 1 and data_rank() == 0)
+
+
+def _full(t: torch.Tensor, dim) -> torch.Tensor:
+    return t if dim is None else gather_shard(t, dim)
+
+
+def _cut(t: torch.Tensor, dim) -> torch.Tensor:
+    return t if dim is None else shard_of(t, dim)
+
+
 def state_payload(state: TrainState, epoch: int, cfg: Config) -> dict:
     """The checkpoint payload of ``state`` after ``epoch``, its tensors
-    copied to the CPU."""
+    copied to the CPU; a tensor-parallel table and its Adam moments
+    whole (a collective over the model group)."""
+    dims = {k: shard_dim(p) for k, p in state.model.named_parameters()}
+    opt_dims = [shard_dim(p) for p in state.optimizer.params]
     adam = state.optimizer.adam.state_dict()
-    adam["state"] = {i: {k: v.detach().cpu() for k, v in st.items()}
+    adam["state"] = {i: {k: _full(v.detach(), opt_dims[i] if v.dim() else
+                                  None).cpu() for k, v in st.items()}
                      for i, st in adam["state"].items()}
     return {
         "config": cfg.to_json(),
-        "state_dict": {k: v.detach().float().cpu()
+        "state_dict": {k: _full(v.detach(), dims.get(k)).float().cpu()
                        for k, v in state.model.state_dict().items()},
         "optimizer": adam,
         "count": state.optimizer.count,
@@ -96,6 +125,8 @@ class CheckpointManager:
     def save(self, name: str, state: TrainState, epoch: int, cfg: Config,
              _payload: Optional[dict] = None):
         """Write ``name`` on rank 0; every rank then meets at a barrier."""
+        if _payload is None and model_size() > 1 and _gathers_payload():
+            _payload = state_payload(state, epoch, cfg)
         if is_main_process():
             self._write(name, state, epoch, cfg, _payload)
         barrier()
@@ -111,7 +142,7 @@ class CheckpointManager:
         """Apply the reference's checkpoint policy; returns the updated
         ``(best_loss, best_acc)``.  The state crosses to the host once per
         epoch, shared by every checkpoint written (on rank 0 only)."""
-        payload = (state_payload(state, epoch, cfg) if is_main_process()
+        payload = (state_payload(state, epoch, cfg) if _gathers_payload()
                    else None)
         if val_loss < best_loss:                      # train_loop.py:84-96
             best_loss = val_loss
@@ -135,7 +166,8 @@ class CheckpointManager:
 
         ``model_only`` loads the weights, the BatchNorm buffers and the
         AIMLE states but not the optimizer, the count or the step: the
-        reference's eval-time resume (``main.py:131``)."""
+        reference's eval-time resume (``main.py:131``).  A
+        tensor-parallel state takes its shard of each table."""
         path = self._path(name)
         blob = torch.load(path, map_location="cpu", weights_only=True)
         missing = [k for k in TRAINING_KEYS if k not in blob]
@@ -144,7 +176,10 @@ class CheckpointManager:
                 f"{path} holds the model only (no {', '.join(missing)}): it "
                 f"can be validated (-e), served or explained, not resumed "
                 f"for training")
-        state.model.load_state_dict(blob["state_dict"], strict=True)
+        dims = {k: shard_dim(p) for k, p in state.model.named_parameters()}
+        state.model.load_state_dict(
+            {k: _cut(v, dims.get(k)) for k, v in blob["state_dict"].items()},
+            strict=True)
         if state.aimle_states is not None and blob.get("aimle_states"):
             with torch.no_grad():
                 for i, st in state.aimle_states.items():
@@ -152,7 +187,12 @@ class CheckpointManager:
                     for f in AIMLE_FIELDS:
                         getattr(st, f).copy_(saved[f])
         if not model_only:
-            state.optimizer.adam.load_state_dict(blob["optimizer"])
+            opt_dims = [shard_dim(p) for p in state.optimizer.params]
+            adam = dict(blob["optimizer"])
+            adam["state"] = {i: {k: _cut(v, opt_dims[int(i)] if v.dim()
+                                         else None) for k, v in st.items()}
+                             for i, st in adam["state"].items()}
+            state.optimizer.adam.load_state_dict(adam)
             state.optimizer.count = int(blob["count"])
             state.optimizer.notfinite_count = int(blob["notfinite_count"])
             state.step = int(blob["step"])

@@ -10,10 +10,12 @@
 * :class:`MetricLogger`: an iteration logger with ETA and the device's
   peak memory (``misc.py:157-262``).
 
-The collectives run over the ``torch.distributed`` group of a
-data-parallel run (:mod:`~isubgvqa_tpu_torch.parallel`), where the JAX
-package gathers with ``process_allgather``; without a group each is the
-identity, as in the JAX package with one process.
+The collectives run over the data group of a data-parallel run
+(:mod:`~isubgvqa_tpu_torch.parallel`), where the JAX package gathers with
+``process_allgather``: the ranks of a model group hold the same samples,
+so over the world each would count ``M`` times.  Without a group (or
+with one data rank) each is the identity, as in the JAX package with one
+process.
 """
 
 from __future__ import annotations
@@ -27,15 +29,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import is_initialized, world_size
+from ..parallel.mesh import data_size, group_of
 
 
 def _sum_over_ranks(values) -> np.ndarray:
-    """Sum a small f64 vector over the ranks (on the card for NCCL)."""
+    """Sum a small f64 vector over the data group (on the card for
+    NCCL)."""
     dev = (torch.device("cuda", torch.cuda.current_device())
            if dist.get_backend() == "nccl" else torch.device("cpu"))
     t = torch.tensor(np.asarray(values, np.float64), device=dev)
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group_of("data")[0])
     return t.cpu().numpy()
 
 
@@ -57,7 +60,7 @@ class SmoothedValue:
 
     def synchronize_between_processes(self):
         """Sum count and total across processes (``misc.py:40-51``)."""
-        if not is_initialized():
+        if data_size() == 1:
             return
         count, total = _sum_over_ranks([self.count, self.total])
         self.count = int(count)
@@ -93,22 +96,24 @@ def reduce_dict(input_dict: Dict[str, float], average: bool = True
                 ) -> Dict[str, float]:
     """Average (or sum) scalar metrics across processes
     (``misc.py:130-154``): a copy in one process."""
-    if not is_initialized():
+    if data_size() == 1:
         return dict(input_dict)
     keys = sorted(input_dict)
     summed = _sum_over_ranks([input_dict[k] for k in keys])
     if average:
-        summed = summed / world_size()
+        summed = summed / data_size()
     return dict(zip(keys, summed.tolist()))
 
 
 def all_gather_objects(obj) -> List:
     """Gather picklable objects from all processes, in rank order
-    (``misc.py:85-127``): ``[obj]`` in one process."""
-    if not is_initialized():
+    (``misc.py:85-127``), over the data group: ``[obj]`` in one
+    process."""
+    group, size = group_of("data")
+    if size == 1:
         return [obj]
-    out: List = [None] * world_size()
-    dist.all_gather_object(out, obj)
+    out: List = [None] * size
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 

@@ -4,13 +4,17 @@ and ``validate_epoch``): pre-eval or evaluate-only, then per epoch
 train, validate and the three-checkpoint policy, printing the JAX
 package's lines.
 
-One process on one device, or one rank of a data-parallel run
-(:mod:`~isubgvqa_tpu_torch.parallel`, launched by ``torchrun``): each rank
-takes its chunk of every round of the sharded bucketed iterator, so the
-global batch is ``world_size x cfg.batch_size`` (the JAX package's
-``put_batch``), the step's sums cross the ranks
+One process on one device, or one rank of a data- and tensor-parallel
+run (:mod:`~isubgvqa_tpu_torch.parallel`, launched by ``torchrun``): the
+trainer splits the ranks into ``D`` data ranks of ``M =
+cfg.model_parallel`` model ranks each (the JAX package's ``(data,
+model)`` mesh) and cuts the two tensor-parallel tables to its model
+rank's shard; each data rank takes its chunk of every round of the
+sharded bucketed iterator (the ranks of a model group the same chunk),
+so the global batch is ``D x cfg.batch_size`` (the JAX package's
+``put_batch``), the step's sums cross the data group
 (:func:`~.steps.make_train_step`), validation reduces its sums across
-them, and only rank 0 prints and writes checkpoints.  Every random draw
+it, and only rank 0 prints and writes checkpoints.  Every random draw
 is seeded from the config: a train step's from ``cfg.seed`` and the
 state's step (:func:`~.steps.step_generator`), a validation batch's noise
 from ``(cfg.seed, epoch + 1, global batch index)``, the data order from
@@ -32,7 +36,8 @@ from ..data.batching import (group_multistep, iterate_batches,
                              iterate_batches_bucketed, prefetch)
 from ..data.build import DataBundle
 from ..models.build import resolve_device
-from ..parallel.mesh import is_main_process, rank, world_size
+from ..parallel.mesh import (data_rank, data_size, init_mesh,
+                             is_main_process, shard_model_)
 from ..serve import batch_seed
 from ..utils.profiling import StepProfiler, trace
 from .checkpoint import CheckpointManager
@@ -50,14 +55,17 @@ class Trainer:
                  shard_index: Optional[int] = None,
                  num_shards: Optional[int] = None):
         """``state`` defaults to a fresh :func:`create_train_state` on
-        ``device`` (the card unless the caller asks for another);
-        ``shard_index`` / ``num_shards`` pick this trainer's share of
-        every split, by default this process's rank and the group's
-        size (0 and 1 without a process group)."""
+        ``device`` (the card unless the caller asks for another); its
+        tensor-parallel tables are cut to this rank's shard (a no-op at
+        ``cfg.model_parallel = 1``).  ``shard_index`` / ``num_shards``
+        pick this trainer's share of every split, by default this
+        process's data rank and the data group's size (0 and 1 without
+        a process group)."""
         self.cfg = cfg
         self.data = data
-        self.shard_index = rank() if shard_index is None else shard_index
-        self.num_shards = world_size() if num_shards is None else num_shards
+        init_mesh(cfg.model_parallel)
+        self.shard_index = data_rank() if shard_index is None else shard_index
+        self.num_shards = data_size() if num_shards is None else num_shards
         self.main = is_main_process()
         # the schedule's epoch length (loop.py:50-51)
         steps_per_epoch = max(
@@ -65,6 +73,7 @@ class Trainer:
         if state is None:
             state = create_train_state(cfg, data.vocab, steps_per_epoch,
                                        device=resolve_device(device))
+        shard_model_(state.model)
         self.state = state
         self.device = next(state.model.parameters()).device
         self.train_step = make_train_step(state.model, state.optimizer, cfg)
@@ -216,6 +225,7 @@ class Trainer:
 
     def resume(self, path: str, model_only: bool = False):
         """``main.py:124-139``: load a checkpoint into the state in place
-        (model-only when evaluating, ``main.py:131``); returns
-        ``(next start epoch, checkpointed config)``."""
+        (model-only when evaluating, ``main.py:131``), each
+        tensor-parallel table's shard cut from the full one in the file;
+        returns ``(next start epoch, checkpointed config)``."""
         return self.ckpt.restore(path, self.state, model_only=model_only)

@@ -11,12 +11,15 @@ nor metrics.  Every random draw of a step comes from one
 package folds the step into its key, ``steps.py:82``).
 
 In a data-parallel run (:mod:`~isubgvqa_tpu_torch.parallel`) a step is
-the JAX package's step on the global batch, the ranks' batches in rank
-order: each rank draws the global batch's noise and keeps its rows; the
-loss divides the rank's summed NLL by the count of real samples over
-every rank; the gradients and the step's metrics are summed over the
-ranks in one flat buffer before the optimizer's clip and non-finite
-check, so every rank takes the same update.
+the JAX package's step on the global batch, the data ranks' batches in
+rank order: each rank draws the data group's global batch of noise and
+keeps its rows (the same rows on every rank of a model group); the loss
+divides the rank's summed NLL by the count of real samples over the data
+group; the gradients and the step's metrics are summed over the data
+group in one flat buffer before the optimizer's clip and non-finite
+check, so every rank takes the same update.  Under tensor parallelism a
+sharded parameter's gradient is its shard's, which the data group's
+ranks hold alike, so it is summed as a shard.
 """
 
 from __future__ import annotations
@@ -29,8 +32,7 @@ import torch.nn.functional as F
 from ..config import Config
 from ..data.batching import GraphBatch
 from ..models.isubgvqa import ISubGVQA
-from ..parallel.mesh import (all_reduce_, data_shard, is_initialized, rank,
-                             world_size)
+from ..parallel.mesh import all_reduce_, data_rank, data_shard, data_size
 from .schedule import Optimizer
 from .state import TrainState
 
@@ -57,8 +59,8 @@ def _metrics(logits, labels, sample_mask, loss, count=None) -> dict:
 
 
 def _all_reduce_step(optimizer: Optimizer, metrics: dict) -> None:
-    """Sum every gradient and the metrics' three sums over the ranks, in
-    one flat buffer, in place."""
+    """Sum every gradient and the metrics' three sums over the data
+    group, in one flat buffer, in place."""
     grads = optimizer.gradients()
     keys = ("loss_sum", "correct", "count")
     flat = torch.cat([g.reshape(-1) for g in grads]
@@ -88,8 +90,8 @@ def make_train_step(model: ISubGVQA, optimizer: Optimizer, cfg: Config):
         gen = generator or step_generator(cfg, state.step,
                                           batch.node_mask.device)
         model.zero_grad(set_to_none=True)
-        ddp = is_initialized()
-        with data_shard(rank(), world_size()):
+        ddp = data_size() > 1
+        with data_shard(data_rank(), data_size()):
             out = model(batch, generator=gen, train=True,
                         aimle_states=state.aimle_states)
         count = (all_reduce_(batch.sample_mask.float().sum()) if ddp

@@ -375,19 +375,29 @@ def test_run_token_coo_entry_prints_the_five_lines(trained, capsys):
     (["--use_topk", "0"], "item 15"),
 ])
 def test_cli_refuses_what_the_port_does_not_run(tmp_path, flags, item):
-    """Item 13: tensor parallelism and a ``num_data_shards`` other than
-    the process group's size raise; ``num_data_shards`` equal to it (a
-    torchrun world of 2 here) passes.  The config variants (item 15) are
-    ported and pass the CLI's check."""
+    """Item 13: a layout that the process group cannot take raises:
+    ``model_parallel`` not dividing its size (one process here, 3 ranks
+    below), or ``num_data_shards`` other than its size over
+    ``model_parallel``; ``num_data_shards`` equal to it (a torchrun world
+    of 2, or of 4 at ``model_parallel`` 2) passes.  The config variants
+    (item 15) are ported and pass the CLI's check."""
     argv = ["--device", "cpu", "--output_dir", str(tmp_path), *flags]
     if item == "item 13":
         cfg = cli.config_from_args(cli.get_argparser().parse_args(argv))
         if cfg.model_parallel > 1:
-            with pytest.raises(NotImplementedError, match="tensor"):
+            with pytest.raises(ValueError, match="does not divide the 1 rank"):
                 cli.main(argv)
+            with pytest.raises(ValueError, match="does not divide the 3 rank"):
+                cli.check_cli_supported(cfg, world=3)
+            cli.check_cli_supported(cfg, world=4)
+            cli.check_cli_supported(dataclasses.replace(
+                cfg, num_data_shards=2), world=4)
+            with pytest.raises(ValueError, match="has 4 rank"):
+                cli.check_cli_supported(dataclasses.replace(
+                    cfg, num_data_shards=4), world=4)
             mismatched = dataclasses.replace(cfg, model_parallel=1,
                                              num_data_shards=2)
-            with pytest.raises(NotImplementedError, match="has 1 rank"):
+            with pytest.raises(ValueError, match="has 1 rank"):
                 cli.check_cli_supported(mismatched, world=1)
         else:
             assert cfg.num_data_shards == 2
