@@ -174,7 +174,8 @@ script exits non-zero):
     sampler on the config of record at full width (bf16, batch 256, the
     GQA-like synthetic task of 8,192 training and 2,048 validation
     questions over the GQA-like meta-info stand-in, this machine having
-    no GQA meta-info) for 25 epochs under the reference's checkpoint policy:
+    no GQA meta-info) for 25 epochs under the reference's checkpoint
+    policy, its steps in captured groups of 8 (``--multistep 8``):
     each epoch's row, finite losses and no skipped step, best validation
     accuracy at least 20 %, every kernel launched over the leg; then
     ``nan_localizer`` on the leg's rolling checkpoint (no nonfinite step
@@ -206,8 +207,23 @@ script exits non-zero):
     largest families phase 10's) and at the train step (B = 256),
     ``profile_components`` (five rows at B = 256, CUDA events) and
     ``bench_host_collate`` over the eight buckets at 2048;
+19. the multistep train step (K optimizer updates as one CUDA graph
+    replay) at the full width of the config of record, B = 256 over the
+    GQA-like mix: (a) in f32 a captured group of 4 against 4 eager
+    steps under phase 9's bounds (losses, grad norms, node masks, every
+    parameter and both Adam moments, the count and the step); (b) a
+    second replay draws other noise in each inner step, and its first
+    inner step equals one eager step at the same ``state.step``; (c) in
+    bf16 at K = 8 over every bucket, the bench's ms a step captured
+    against eager, peak memory with and without the graphs, the
+    wrappers' and the device profile's launches a replay and the host's
+    waits a group (one, the metric read); (d) an eager eval after
+    replays against one after the same updates made eagerly (no stale
+    weight memo); (e) an eager step with an inf gradient skipped, state
+    untouched, without a host wait; (f) ``cli.main --multistep 8`` an
+    epoch, a checkpoint and a resume for another;
 then the per-kernel JSON line (all eight kernels, with the bench's
-launches, phase 11's, 12's, 13's, 14's, 15's, 16's, 17's and 18's among them, beside the
+launches, phase 11's to 19's among them, beside the
 main path's, and #1's and #5's times at the variants' shapes) and the
 final ``{"ok": true, ...}`` line.  Phase 7 runs right after phase 3, before
 the serving model is built.
@@ -1924,7 +1940,8 @@ ENTRY_SIZE = 4096            # phase 12's train questions: 8 or more steps of
 # 256 an epoch over two or more node buckets of the GQA-like mix
 EXPLAIN_B = 2048             # the explain bench's batch
 EXPLAIN_DEV = 8192           # its dev questions (a pass of 10 batches)
-MAX_SYNCS_PER_STEP = 3       # the optimizer's two bool() and one metric read
+# the Trainer's one metric read a step: the optimizer makes no host read
+MAX_SYNCS_PER_STEP = 1
 
 
 def captured(fn, *args):
@@ -1995,7 +2012,7 @@ def phase_entry_points():
         if not want <= names or ("checkpoint_top_res" in names) != (top > 0):
             raise AssertionError(f"checkpoints {sorted(names)} (top "
                                  f"validation accuracy {top})")
-        count1 = first.state.optimizer.count
+        count1 = int(first.state.optimizer.count)
         sched = first.state.optimizer.schedule
         log(f"[12 entry] cli.main 2 epochs in {train_s:.1f} s: optimizer "
             f"count {count1}, checkpoints {sorted(names)}")
@@ -2006,12 +2023,12 @@ def phase_entry_points():
         got = re.search(r"^=> step (\d+), optimizer count (\d+), learning "
                         r"rate (\S+)$", text, re.M)
         if not (got and int(got.group(2)) == count1
-                and float(got.group(3)) == sched(count1)
+                and float(got.group(3)) == float(sched(count1))
                 and "Epoch: [2][" in text and "Epoch: [1][" not in text):
             raise AssertionError(f"resume: {got and got.group(0)}")
         log(f"[12 entry] resumed at epoch 2: optimizer count {count1}, "
             f"learning rate {got.group(3)} = schedule({count1}) "
-            f"{sched(count1)!r}")
+            f"{float(sched(count1))!r}")
         evaluated, text = captured(cli.main, argv + [
             "-e", "--resume", "checkpoint_lowest_val_loss"])
         if not (re.search(r"^Val epoch \[-1\] dev: ", text, re.M)
@@ -3250,10 +3267,10 @@ def phase_checkpoints(smi):
                     and torch.equal(s["exp_avg_sq"].cpu(), nu_sd[n])
                     and float(s["step"]) == CKPT_COUNT):
                 bad.append(f"adam[{n}]")
-        if bad or (epoch, opt.count, opt.notfinite_count, st.step) != (
-                4, CKPT_COUNT, 0, CKPT_STEP):
+        if bad or (epoch, int(opt.count), int(opt.notfinite_count),
+                   st.step) != (4, CKPT_COUNT, 0, CKPT_STEP):
             raise AssertionError(f"resume: {bad[:5]} differ; epoch {epoch}, "
-                                 f"count {opt.count}, step {st.step}")
+                                 f"count {int(opt.count)}, step {st.step}")
         n_moments = sum(v.numel() for v in mu_sd.values())
         log(f"[15 ckpt] export of the full-width train state ({n_moments} "
             f"parameters, Adam count {CKPT_COUNT}, step {CKPT_STEP}) in "
@@ -3274,16 +3291,16 @@ def phase_checkpoints(smi):
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         counts["checkpoints.resume"] = ops.launch_counts(ops.TRAIN_WRAPPERS)
-        if not (np.isfinite(losses).all() and opt.count == CKPT_COUNT
+        if not (np.isfinite(losses).all() and int(opt.count) == CKPT_COUNT
                 + CKPT_STEPS and trainer.state.step == CKPT_STEP + CKPT_STEPS
                 and min(counts["checkpoints.resume"].values()) > 0):
             raise AssertionError(f"resumed steps: losses {losses}, count "
-                                 f"{opt.count}, launches "
+                                 f"{int(opt.count)}, launches "
                                  f"{counts['checkpoints.resume']}")
         log(f"[15 ckpt] {CKPT_STEPS} resumed steps at {TRAIN_B}: losses "
             f"{[round(v, 5) for v in losses]}, ms "
             f"{[round(v, 1) for v in step_ms]} (the first a fresh state's); "
-            f"Adam's count {CKPT_COUNT} -> {opt.count}; launches "
+            f"Adam's count {CKPT_COUNT} -> {int(opt.count)}; launches "
             f"{json.dumps(counts['checkpoints.resume'])}")
         del trainer, st, opt, batches
         torch.cuda.empty_cache()
@@ -4028,6 +4045,382 @@ def phase_tools():
     return counts
 
 
+MS_K = 8                     # phase 19's group: the bench's (multistep 8) row
+MS_PARITY_K = 4              # (a)'s f32 group
+# (a)-(e)'s f32 rate, without warmup.  At 1e-3 the batches are learned so
+# fast (loss 7.5 to 3.3 in 7 updates) that the captured and the eager
+# trajectories part at the eighth update through the top-k, the losses
+# before it still within 3e-5 (PERF.md section 6); at 1e-4 a group still
+# moves the weights far past (d)'s fresh-model bound
+MS_LR = 1e-4
+MS_CLI_SIZE = 4096           # (f)'s train questions: 16 steps, two groups of 8
+
+
+def train_tensors(state):
+    """The tensors a train step updates in place, in a fixed order."""
+    ts = list(state.model.state_dict().values())
+    for p in state.optimizer.params:
+        st = state.optimizer.adam.state[p]
+        ts += [st["exp_avg"], st["exp_avg_sq"]]
+    return ts + [state.optimizer.count, state.optimizer.notfinite_count]
+
+
+def train_leaves(state):
+    """Each parameter and both its Adam moments, by name."""
+    out = {}
+    for n, p in state.model.named_parameters():
+        out[n] = p.detach()
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"{n}.{k}"] = state.optimizer.adam.state[p][k]
+    return out
+
+
+def eval_after_replays(vocab, cfg, batch, cap, eag, memos):
+    """Phase 19 (d): the eval forward of ``cap`` (after graph replays,
+    with ``memos`` weights having kept a memo from an eval between them)
+    against a fresh model of the same weights and buffers (no memo: the
+    stale-memo check, within 1e-6 of the loss and 1e-5 of the logits'
+    RMS) and against ``eag`` (the same updates made eagerly: phase 9's
+    bounds).  Returns the line to log."""
+    import torch
+    from isubgvqa_tpu_torch.train import create_train_state, make_eval_step
+
+    def run(st):
+        gen = torch.Generator(device=batch.node_mask.device).manual_seed(5)
+        m, out = make_eval_step(st.model, cfg, return_output=True)(
+            st, batch, gen)
+        return float(m["loss_sum"] / m["count"]), out
+
+    fresh = create_train_state(
+        cfg, vocab, 8, device=batch.node_mask.device,
+        state_dict={k: v.detach().clone()
+                    for k, v in cap.model.state_dict().items()})
+    (lc, oc), (lf, of), (le, oe) = run(cap), run(fresh), run(eag)
+    rel = lambda a, b: leaf_rms_errors({"x": a.logits}, {"x": b.logits})[0][0]
+    same, lerr = rel(oc, of), rel(oc, oe)
+    worst = leaf_rms_errors(train_leaves(cap), train_leaves(eag))[0]
+    text = (f"eval after replays ({memos} weights kept a memo from an eval "
+            f"between them): loss {lc:.7f} against {lf:.7f} from a fresh "
+            f"model of the same weights (logits RMS error {same:.3g}; "
+            f"bounds 1e-6, 1e-5) and {le:.7f} after the same updates made "
+            f"eagerly (logits RMS error {lerr:.3g}; bounds 1e-5, 3e-3); "
+            f"worst parameter or moment leaf against the eager state "
+            f"{worst[0]:.3g} of its RMS ({worst[1]})")
+    if not (abs(lc - lf) <= 1e-6 * abs(lf) and same <= 1e-5
+            and torch.equal(oc.node_mask, of.node_mask)):
+        raise AssertionError(f"multistep (d), a stale memo: {text}")
+    if not (abs(lc - le) <= 1e-5 * abs(le) and lerr <= 3e-3
+            and torch.equal(oc.node_mask, oe.node_mask)):
+        raise AssertionError(f"multistep (d): {text}")
+    return text
+
+
+def leaf_rms_errors(got, want):
+    """Each leaf's RMS error over its RMS, floored at 1e-3 of the largest
+    leaf's RMS (phase 9's measure), worst first."""
+    rms = lambda t: t.float().square().mean().sqrt().item()
+    floor = 1e-3 * max(rms(w) for w in want.values())
+    return sorted(((rms(got[k].float() - w.float()) / max(rms(w), floor), k)
+                   for k, w in want.items()), reverse=True)
+
+
+def phase_multistep(smi):
+    """Phase 19: the multistep train step (``make_multistep_train_step``,
+    K optimizer updates as one CUDA graph replay) at the full width of the
+    config of record, B = 256 over the GQA-like bucket mix (the bench's
+    fixture, 3K distinct batches a bucket).  (a) in f32 with TF32 off, a
+    captured group of 4 on the largest bucket against 4 eager steps from
+    the same weights, batches and seeds, under phase 9's bounds; (b) a
+    second replay (its generators given) draws other noise in every inner
+    step, and its first inner step equals one eager step at the same
+    ``state.step``; (c) in
+    bf16 at K = 8 over every bucket, the bench's ms a step captured
+    against eager, the kernels' launches a replay (the wrappers' counts
+    and the device profile), the host's waits a group and peak memory
+    with and without graphs; (d) an eager eval forward after replays
+    against one after the same updates made eagerly (a stale weight memo
+    would fail it); (e) an eager step whose gradient holds an inf skips
+    the update without a host wait; (f) ``cli.main --multistep 8`` trains
+    an epoch, checkpoints and resumes for another.  Returns the launch
+    counts of (c)'s bench row and of (f)."""
+    import torch
+    from isubgvqa_tpu_torch import bench, cli, ops
+    from isubgvqa_tpu_torch.config import Config
+    from isubgvqa_tpu_torch.profile_breakdown import OTHER
+    from isubgvqa_tpu_torch.train import (create_train_state, make_eval_step,
+                                          make_multistep_train_step,
+                                          make_train_step)
+    from isubgvqa_tpu_torch.train.steps import METRIC_KEYS, step_generator
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counts = {}
+    setup = bench.build_bench_setup(
+        bench._cfg("gumbel", TRAIN_B, "bfloat16"), 3 * MS_K,
+        min_timed=3 * MS_K - 1, device=dev, train=True)
+    key = max(setup.bucket_batches)
+    group = [b.to(dev) for b in setup.bucket_batches[key][:MS_PARITY_K]]
+    log(f"[19 multistep] fixture: {len(setup.ds)} samples, buckets "
+        f"{ {str(k): len(v) for k, v in setup.bucket_batches.items()} } "
+        f"batches of {TRAIN_B} in {time.perf_counter() - t_phase:.1f} s")
+
+    # (a) f32: one captured group of 4 against 4 eager steps
+    cfg32 = dataclasses.replace(setup.cfg, compute_dtype="float32",
+                                lr=MS_LR, warmup_epochs=0)
+    cap = create_train_state(cfg32, setup.vocab, 8, device=dev, seed=3)
+    sd = {k: v.detach().clone() for k, v in cap.model.state_dict().items()}
+    eag = create_train_state(cfg32, setup.vocab, 8, device=dev,
+                             state_dict=sd)
+    masks = {}
+
+    def mask_hook(name, state):
+        buf = masks[name] = torch.zeros(
+            (MS_PARITY_K,) + tuple(group[0].node_mask.shape),
+            dtype=torch.bool, device=dev)
+
+        def hook(module, args, out):
+            j = state.step % MS_PARITY_K
+            buf[j].copy_(out.node_mask.reshape(buf.shape[1:]) > 0)
+        return state.model.register_forward_hook(hook)
+
+    hooks = [mask_hook("captured", cap), mask_hook("eager", eag)]
+    multi = make_multistep_train_step(cap.model, cap.optimizer, cfg32)
+    t0 = time.perf_counter()
+    cap, m_cap = multi(cap, group)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    step = make_train_step(eag.model, eag.optimizer, cfg32)
+    m_eag = []
+    for b in group:
+        eag, m = step(eag, b)
+        m_eag.append({k: float(v) for k, v in m.items()})
+    hooks.pop(0).remove()       # the graph keeps writing its masks
+    loss = lambda m, j: float(m["loss_sum"][j] / m["count"][j])
+    for j, m in enumerate(m_eag):
+        lc, le = loss(m_cap, j), m["loss_sum"] / m["count"]
+        nc, ne = float(m_cap["grad_norm"][j]), m["grad_norm"]
+        if not (abs(lc - le) <= 1e-5 * abs(le) and abs(nc - ne) <= 1e-3 * ne):
+            raise AssertionError(f"multistep f32 step {j}: loss {lc} vs "
+                                 f"eager {le}, grad norm {nc} vs {ne}")
+    if not torch.equal(masks["captured"], masks["eager"]):
+        raise AssertionError("multistep f32: node masks differ")
+    names = [n for n, _ in cap.model.named_parameters()]
+    errs = leaf_rms_errors(train_leaves(cap), train_leaves(eag))
+    if not (errs[0][0] <= 3e-3 and cap.step == eag.step == MS_PARITY_K
+            and int(cap.optimizer.count) == int(eag.optimizer.count)
+            == MS_PARITY_K):
+        raise AssertionError(f"multistep f32: {errs[0][1]} differs by "
+                             f"{errs[0][0]:.3g} of its RMS; steps "
+                             f"{cap.step}/{eag.step}, counts "
+                             f"{int(cap.optimizer.count)}/"
+                             f"{int(eag.optimizer.count)}")
+    log(f"[19 multistep] (a) f32 (TF32 off) captured group of "
+        f"{MS_PARITY_K} on bucket {key} against {MS_PARITY_K} eager steps "
+        f"(first call, warm-up and capture included, {capture_s:.1f} s): "
+        f"losses {[round(loss(m_cap, j), 6) for j in range(MS_PARITY_K)]} "
+        f"vs {[round(m['loss_sum'] / m['count'], 6) for m in m_eag]} "
+        f"(bound 1e-5 relative), grad norms within 1e-3, node masks "
+        f"identical, worst of {len(errs)} parameter and moment leaves "
+        f"{errs[0][0]:.3g} of its RMS ({errs[0][1]}; bound 3e-3), count "
+        f"and step {MS_PARITY_K} in both ({len(names)} parameters)")
+
+    # (d) first half: an eval forward between replays keeps weight memos
+    make_eval_step(cap.model, cfg32)(
+        cap, group[0], torch.Generator(device=dev).manual_seed(5))
+    memos = sum("_isg_memo" in p.__dict__ for p in cap.model.parameters())
+    if not memos:
+        raise AssertionError("multistep (d): the eval forward keeps no "
+                             "weight memo, so a stale one cannot show")
+
+    # (b) a second replay: other noise in every inner step, and its first
+    # inner step is one eager step at the same state.step
+    with torch.no_grad():
+        torch._foreach_copy_(train_tensors(eag), train_tensors(cap))
+    eag.step = cap.step
+    first = [loss(m_cap, j) for j in range(MS_PARITY_K)]
+    # the steps' own generators, given: the replay starts from their states
+    cap, m_cap2 = multi(cap, group, [
+        step_generator(cfg32, cap.step + j, dev)
+        for j in range(MS_PARITY_K)])
+    second = [loss(m_cap2, j) for j in range(MS_PARITY_K)]
+    eag, m0 = step(eag, group[0])
+    l0 = float(m0["loss_sum"] / m0["count"])
+    n0, nc = float(m0["grad_norm"]), float(m_cap2["grad_norm"][0])
+    if not (all(a != b for a, b in zip(first, second))
+            and abs(second[0] - l0) <= 1e-5 * abs(l0)
+            and abs(nc - n0) <= 1e-3 * n0
+            and float(m_cap2["count"][0]) == float(m0["count"])):
+        raise AssertionError(f"multistep (b): replay losses {first} then "
+                             f"{second}; inner step 0 {second[0]} / {nc} "
+                             f"against eager {l0} / {n0}")
+    eager = [l0]
+    for b in group[1:]:
+        eag, m = step(eag, b)
+        eager.append(float(m["loss_sum"] / m["count"]))
+    hooks.pop().remove()
+    same_masks = [bool(torch.equal(a, b))
+                  for a, b in zip(masks["captured"], masks["eager"])]
+    log(f"[19 multistep] (b) second replay: losses {second} (each differs "
+        f"from the first replay's; eager steps {eager}, node masks "
+        f"identical {same_masks}); inner step 0 against one eager step at "
+        f"state.step {MS_PARITY_K}: loss {second[0]:.6f} vs {l0:.6f}, grad "
+        f"norm {nc:.6f} vs {n0:.6f}")
+
+    # (d) second half: eval after the replays against eval after the same
+    # updates made eagerly, and against a fresh model of the same weights
+    log(f"[19 multistep] (d) " + eval_after_replays(
+        setup.vocab, cfg32, group[0], cap, eag, memos))
+
+    # (e) an inf in one gradient: the step is skipped, with no host wait
+    p_inf = next(p for p in eag.model.parameters() if p.dim() == 2)
+    row0 = torch.zeros(1, dtype=torch.long, device=dev)
+    hook = p_inf.register_hook(lambda g: g.index_fill(0, row0, float("inf")))
+    held = lambda: list(train_leaves(eag).values()) + [eag.optimizer.count]
+    before = [t.clone() for t in held()]
+    nf = int(eag.optimizer.notfinite_count)
+    box = {}
+    syncs = host_syncs(lambda: box.update(m=step(eag, group[1])[1]))
+    hook.remove()
+    waits = sum(v for k, v in syncs.items() if "Synchronize" in k)
+    after = held()
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    if not (same and waits == 0
+            and int(eag.optimizer.notfinite_count) == nf + 1
+            and not np.isfinite(float(box["m"]["grad_norm"]))):
+        raise AssertionError(f"multistep (e): inf step kept state {same}, "
+                             f"host waits {syncs}, notfinite "
+                             f"{int(eag.optimizer.notfinite_count)}")
+    log(f"[19 multistep] (e) a step with an inf gradient row: weights, "
+        f"both moments and Adam's count {int(eag.optimizer.count)} "
+        f"unchanged (BatchNorm's statistics move, as in the JAX package), "
+        f"notfinite_count {nf} -> {nf + 1}, host calls {json.dumps(syncs)} "
+        f"(no wait)")
+    del cap, eag, multi, step, before, after, sd, masks
+    torch.cuda.empty_cache()
+
+    # (c) bf16, K = 8, every bucket: captured against eager
+    torch.cuda.reset_peak_memory_stats()
+    eager_row = bench.bench_train_step(
+        setup=bench.for_sampler(setup, "gumbel", train=True))
+    eager_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    graph_row = bench.bench_train_step(setup=setup, multistep=MS_K)
+    torch.cuda.synchronize()
+    counts["multistep.bench"] = ops.launch_counts(ops.TRAIN_WRAPPERS)
+    graph_peak = torch.cuda.max_memory_allocated()
+    if min(counts["multistep.bench"].values()) == 0:
+        raise AssertionError(f"multistep bench: a kernel never launched: "
+                             f"{counts['multistep.bench']}")
+    per = {b: (eager_row["per_bucket"][b]["ms_per_step"],
+               graph_row["per_bucket"][b]["ms_per_step"])
+           for b in graph_row["per_bucket"]}
+    log(f"[19 multistep] (c) bf16 ms a step, eager -> captured (K = "
+        f"{MS_K}) by bucket: " + ", ".join(
+            f"{b} {e:.2f} -> {g:.2f}" for b, (e, g) in per.items())
+        + f"; blended {eager_row['ms_per_step']:.2f} -> "
+        f"{graph_row['ms_per_step']:.2f} ms "
+        f"({eager_row['train_qps_per_chip']:.0f} -> "
+        f"{graph_row['train_qps_per_chip']:.0f} train q/s, MFU "
+        f"{eager_row['mfu']:.3f} -> {graph_row['mfu']:.3f}); peak memory "
+        f"{eager_peak / 2 ** 30:.2f} GiB eager, {graph_peak / 2 ** 30:.2f} "
+        f"GiB with {len(graph_row['per_bucket'])} graphs; launches "
+        f"{json.dumps(counts['multistep.bench'])}; {smi}")
+
+    # (c) one replay up close: the kernels it launches and the host waits
+    st = setup.state
+    multi = make_multistep_train_step(st.model, st.optimizer, setup.cfg)
+    big = [b.to(dev) for b in setup.bucket_batches[key][:MS_K]]
+    multi(st, big)
+    recorded = next(iter(multi.graphs.values())).launches
+    bad = {k: v for k, v in recorded.items()
+           if k.replace("_bwd", "") in PER_STEP
+           and v != MS_K * PER_STEP[k.replace("_bwd", "")]}
+    if bad:
+        raise AssertionError(f"multistep: a replay launches {recorded}, "
+                             f"expected {MS_K} x {PER_STEP}")
+    read = lambda m: torch.stack([m[k] for k in METRIC_KEYS], 1).tolist()
+    syncs = host_syncs(lambda: read(multi(st, big)[1]))
+    waits = sum(v for k, v in syncs.items() if "Synchronize" in k)
+    if waits > 1:
+        raise AssertionError(f"multistep: {syncs} host calls a group")
+    fam_launches = {}
+    wall, fam = device_profile(lambda: multi(st, big), fam_launches)
+    eager_launches = {}
+    one = make_train_step(st.model, st.optimizer, setup.cfg)
+    device_profile(lambda: one(st, big[0]), eager_launches)
+    port = {f: n for f, n in eager_launches.items() if f != OTHER}
+    short = {f: fam_launches.get(f, 0) for f, n in port.items()
+             if fam_launches.get(f, 0) < MS_K * n}
+    if not port or short:
+        raise AssertionError(f"multistep: the replay's device launches "
+                             f"{fam_launches} against {MS_K} x one eager "
+                             f"step's {port}")
+    busy = sum(fam.values())
+    log(f"[19 multistep] (c) one replay of {MS_K} steps on bucket {key}: "
+        f"wall {wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}); "
+        f"the wrappers' launches a replay {json.dumps(recorded)}; device "
+        f"launches by kernel family {json.dumps(fam_launches)} (one eager "
+        f"step: {json.dumps(port)}); host calls a group with its metric "
+        f"read {json.dumps(syncs)}")
+    del multi, big, one, st, setup
+    torch.cuda.empty_cache()
+
+    # (f) the CLI: an epoch at --multistep 8, a checkpoint and a resume
+    root = tempfile.mkdtemp(prefix="chip_smoke_multistep_")
+    try:
+        base = os.path.join(root, "one_bucket.json")
+        with open(base, "w") as f:
+            f.write(Config(bucket_node_caps=(128,),
+                           bucket_question_lens=(32,),
+                           max_nodes_per_graph=128,
+                           max_edges_per_graph=384).to_json())
+        argv = ["--config", base, "--synthetic", "--synthetic_size",
+                str(MS_CLI_SIZE), "--sampler_type", "gumbel", "--sample_k",
+                "3", "--mgat_masks", "1", "1", "1", "0.15",
+                "--compute_dtype", "bfloat16", "--batch-size", str(TRAIN_B),
+                "--question_len", "32", "--meta_dir", "", "--multistep",
+                str(MS_K), "--output_dir", os.path.join(root, "out")]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        first, text = captured(cli.main, argv + ["--epochs", "1"])
+        one_s = time.perf_counter() - t0
+        steps1 = first.state.step
+        graphs1 = len(first.multi_step.graphs)
+        if not (graphs1 and steps1 >= MS_K and os.path.isfile(
+                os.path.join(root, "out", "checkpoint"))
+                and re.search(r"^Val epoch \[0\] dev: ", text, re.M)):
+            raise AssertionError(f"cli --multistep {MS_K}: {steps1} steps, "
+                                 f"{graphs1} graphs")
+        del first
+        resumed, text = captured(cli.main, argv + ["--epochs", "2",
+                                                   "--resume", "checkpoint"])
+        torch.cuda.synchronize()
+        counts["multistep.cli"] = ops.launch_counts()
+        got = re.search(r"^=> step (\d+), optimizer count (\d+), ", text,
+                        re.M)
+        if not (got and int(got.group(1)) == int(got.group(2)) == steps1
+                and resumed.state.step == 2 * steps1
+                and "Epoch: [1][" in text and "Epoch: [0][" not in text
+                and min(counts["multistep.cli"].values()) > 0):
+            raise AssertionError(f"cli --multistep resume: "
+                                 f"{got and got.group(0)}, step "
+                                 f"{resumed.state.step}, launches "
+                                 f"{counts['multistep.cli']}")
+        log(f"[19 multistep] (f) cli.main --multistep {MS_K}: epoch 0 "
+            f"({steps1} steps, {graphs1} graph) in {one_s:.1f} s, then "
+            f"--resume checkpoint: {got.group(0).strip()} and epoch 1; "
+            f"launches {json.dumps(counts['multistep.cli'])}")
+        del resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[19 multistep] done in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4076,6 +4469,7 @@ def main() -> int:
     bench_counts.update({f"tensor_parallel.{k}": v for k, v in
                          phase_tensor_parallel(smi).items()})
     bench_counts.update({f"tools.{k}": v for k, v in phase_tools().items()})
+    bench_counts.update(phase_multistep(smi))
     line = []
     for k, (src, replaces) in KERNELS.items():
         r = entries[(k, torch.bfloat16)]

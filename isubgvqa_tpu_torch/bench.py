@@ -33,9 +33,10 @@ under ``ISUBGVQA_NATIVE=0``).  ``--e2e`` adds the end-to-end pipeline
 (bucketed iterator, collate, :func:`~isubgvqa_tpu_torch.data.prefetch`
 to the card, forward); ``--explain`` adds explanation extraction end to end
 (:func:`bench_explain`, its rates also in the stdout line); ``--full``
-adds those, the inference rows of the imle, aimle and simple samplers
-and the training step of all four, as the root ``bench.py --full``
-does.  On a
+adds those, the inference rows of the imle, aimle and simple samplers,
+the training step of all four and a gumbel training row through the
+multistep path (``--train-multistep``, K = 8: ``(multistep 8)``), as
+the root ``bench.py --full`` does.  On a
 CUDA device the fused layers run their CUDA kernels; without CUDA the
 bench raises unless ``--device cpu`` asks for the plain PyTorch path.
 """
@@ -61,7 +62,8 @@ from .data import (AnswerMap, HashWordTokenizer, SceneGraphVocab,
 from .models.build import build_model, make_aimle_states, resolve_device
 from .ops.flops import (batch_shape, forward_flops, peak_flops,
                         train_step_flops)
-from .train import create_train_state, make_train_step
+from .train import (create_train_state, make_multistep_train_step,
+                    make_train_step)
 
 NODE_CAPS = (16, 32, 64, 128)
 CHUNK = 5                     # batches a timed chunk
@@ -374,23 +376,36 @@ def bench_e2e(sampler: str = "gumbel", batch_size: int = 2048,
 def bench_train_step(sampler: str = "gumbel", batch_size: int = 256,
                      iters: int = 8, dtype: str = "bfloat16",
                      node_caps=NODE_CAPS, device=None,
-                     setup: Optional[BenchSetup] = None) -> dict:
+                     setup: Optional[BenchSetup] = None,
+                     multistep: int = 1) -> dict:
     """The full training step (forward, backward, clip and Adam) of the
     port's ``make_train_step`` on ``create_train_state``, ms per step and
     training questions per second per bucket and blended by the bucket
     mix, TFLOP/s and MFU of the step's products.  ``setup`` reuses a
     :func:`build_bench_setup` with ``train``.  The FLOPs are the step's
     matrix products, which no sampler adds to (a sampler's backward makes
-    none), so every sampler's row divides by the same count."""
+    none), so every sampler's row divides by the same count.
+
+    ``multistep = K > 1`` times the Trainer's multistep path
+    (:func:`~.train.make_multistep_train_step`: K same-bucket batches a
+    dispatch, one CUDA graph replay on the card): each bucket's stream
+    is cut into groups of K distinct batches, at least 3 (the first a
+    warm-up, which captures), and a group's time over K is the ms per
+    step.  The FLOPs are still the single step's, so FLOPs per question
+    do not depend on K."""
+    k = max(int(multistep), 1)
     if setup is None:
         setup = build_bench_setup(_cfg(sampler, batch_size, dtype, node_caps),
-                                  iters, device=device, train=True)
+                                  max(iters, 3 * k),
+                                  min_timed=3 * k - 1 if k > 1 else 4,
+                                  device=device, train=True)
     cfg, dev, state = setup.cfg, setup.device, setup.state
     peak = _peak(cfg, dev)
-    step = make_train_step(state.model, state.optimizer, cfg)
+    step = (make_multistep_train_step if k > 1 else make_train_step)(
+        state.model, state.optimizer, cfg)
 
-    def run_one(batch):
-        return step(state, batch)[1]
+    def run_one(unit):
+        return step(state, unit)[1]
 
     blended_t_q = blended_flops_q = 0.0
     per_bucket = {}
@@ -398,7 +413,17 @@ def bench_train_step(sampler: str = "gumbel", batch_size: int = 256,
         host = setup.bucket_batches[key]
         batches = [b.to(dev) for b in host]
         flops = train_step_flops(cfg, *batch_shape(batches[0]))
-        ms, retimed = _time_stream_checked(run_one, batches, flops, peak, dev)
+        units = batches
+        if k > 1:
+            if len(batches) < 3 * k:
+                raise ValueError(f"multistep {k}: bucket {key} has "
+                                 f"{len(batches)} batches, fewer than 3 "
+                                 f"groups")
+            units = [batches[i:i + k]
+                     for i in range(0, len(batches) - k + 1, k)]
+        ms, retimed = _time_stream_checked(run_one, units, flops * k, peak,
+                                           dev)
+        ms /= k
         w = setup.bucket_weight[key]
         blended_t_q += w * (ms / 1e3) / cfg.batch_size
         blended_flops_q += w * flops / cfg.batch_size
@@ -417,6 +442,7 @@ def bench_train_step(sampler: str = "gumbel", batch_size: int = 256,
         "device": _device_name(dev),
         "dtype": cfg.compute_dtype,
         "batch_size": cfg.batch_size,
+        "multistep": k,
         "train_qps_per_chip": 1.0 / blended_t_q,
         "ms_per_step": blended_t_q * cfg.batch_size * 1e3,
         "flops_per_question": blended_flops_q,
@@ -496,6 +522,11 @@ def main(argv=None) -> int:
                     help="fixture size in batches")
     ap.add_argument("--node-caps", type=int, nargs="+", default=NODE_CAPS)
     ap.add_argument("--train-batch", type=int, default=256)
+    ap.add_argument("--train-multistep", type=int, default=8,
+                    help="K of --full's extra gumbel train-step row "
+                         "through the multistep path (K updates a "
+                         "dispatch, one CUDA graph replay); 1 leaves "
+                         "the row out")
     args = ap.parse_args(argv)
 
     cfg = _cfg("gumbel", args.batch_size, "bfloat16", args.node_caps)
@@ -514,6 +545,12 @@ def main(argv=None) -> int:
         for sampler in ("gumbel", "imle", "aimle", "simple"):
             print(json.dumps(bench_train_step(
                 setup=for_sampler(tsetup, sampler, train=True))),
+                file=sys.stderr)
+        del tsetup
+        if args.train_multistep > 1:
+            print(json.dumps(bench_train_step(
+                "gumbel", args.train_batch, node_caps=args.node_caps,
+                device=args.device, multistep=args.train_multistep)),
                 file=sys.stderr)
     explain = {}
     if args.explain or args.full:

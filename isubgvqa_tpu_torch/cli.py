@@ -146,9 +146,10 @@ def get_argparser() -> argparse.ArgumentParser:
                    help="trace fit() with torch.profiler here and log "
                         "per-epoch step-time summaries")
     p.add_argument("--multistep", type=int, default=d.multistep,
-                   help="train steps per group of same-shape batches "
-                        "(the JAX package's batch order under its "
-                        "multistep; the steps run one after another)")
+                   help="optimizer updates per dispatch: K same-shape "
+                        "batches a group, whose K steps run as one CUDA "
+                        "graph replay on the card (a loop on the CPU); "
+                        "refused on CUDA under a multi-rank Gloo group")
     return p
 
 
@@ -289,7 +290,7 @@ def _run(cfg: Config, device):
             if not cfg.evaluate:
                 opt = trainer.state.optimizer
                 say(f"=> step {trainer.state.step}, optimizer count "
-                    f"{opt.count}, learning rate {opt.lr()!r}")
+                    f"{int(opt.count)}, learning rate {opt.lr()!r}")
         else:
             say(f"=> no checkpoint found at '{cfg.resume}'")
 

@@ -104,9 +104,10 @@ class Config:
     use_pallas: bool = True                 # here: the CUDA kernels
     kernel_pack: Union[int, str, None] = "auto"   # TPU only
     donate_state: bool = True               # TPU only
-    # train steps per group: >1 groups that many same-shape batches
-    # (data/batching.py:group_multistep) and runs their steps one after
-    # another, on the JAX package's batch order; 1 = one step at a time
+    # optimizer updates per dispatch: >1 groups that many same-shape
+    # batches (data/batching.py:group_multistep) and runs each group's
+    # steps as one CUDA graph replay on the card (a loop elsewhere:
+    # train/steps.py:make_multistep_train_step); 1 = one step at a time
     multistep: int = 1
 
     def scaled(self) -> "Config":

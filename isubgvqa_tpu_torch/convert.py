@@ -441,14 +441,13 @@ def train_payload_from_jax(params: Mapping, batch_stats: Mapping,
         _check_relayout(params, names)
         mu_sd = state_dict_from_jax(mu, batch_stats)
         nu_sd = state_dict_from_jax(nu, batch_stats)
-        adam = state.optimizer.adam
-        adam.load_state_dict({
+        state.optimizer.load({
             "state": {i: {"step": torch.tensor(float(count)),
                           "exp_avg": mu_sd[n], "exp_avg_sq": nu_sd[n]}
                       for i, n in enumerate(names)},
-            "param_groups": adam.state_dict()["param_groups"]})
-        state.optimizer.count = int(count)
-        state.optimizer.notfinite_count = int(notfinite_count)
+            "param_groups":
+                state.optimizer.adam.state_dict()["param_groups"]},
+            int(count), int(notfinite_count))
         state.step = int(step)
     payload = state_payload(state, int(epoch), cfg)
     if mu is None:

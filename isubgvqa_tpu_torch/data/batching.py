@@ -64,6 +64,12 @@ class GraphBatch:
         return all(getattr(self, f.name).is_pinned()
                    for f in dataclasses.fields(self))
 
+    def copy_(self, other: "GraphBatch") -> "GraphBatch":
+        """Copy ``other``'s tensors (same shapes) into this batch's."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(getattr(other, f.name))
+        return self
+
     def record_stream(self, stream) -> None:
         """Mark every tensor as used on ``stream`` (CUDA tensors)."""
         for f in dataclasses.fields(self):
@@ -364,9 +370,9 @@ def group_multistep(iterator: Iterator, k: int) -> Iterator:
     shape have accumulated, and at the end of the stream flushes what is
     left of each shape, in first-seen order, as ``("single", batch,
     meta)`` items.  Unlike the JAX package the group is a list, not a
-    stacked array: the caller runs its ``k`` steps one after another, on
-    the batch order the JAX package trains on.  ``k <= 1`` yields every
-    pair as a single."""
+    stacked array, which
+    :func:`~isubgvqa_tpu_torch.train.steps.make_multistep_train_step`
+    takes as it is.  ``k <= 1`` yields every pair as a single."""
     if k <= 1:
         for batch, meta in iterator:
             yield ("single", batch, meta)

@@ -54,6 +54,16 @@ def reset_launch_counts() -> None:
         fn.bwd_launches = 0
 
 
+def add_launch_counts(counts: dict, sign: int = 1) -> None:
+    """Add ``sign`` times ``counts`` (a :func:`launch_counts` dict) to the
+    wrappers' counts: a CUDA graph's replay launches again what its
+    capture recorded, and the capture itself launched nothing."""
+    for fn in WRAPPERS:
+        fn.launches += sign * counts.get(fn.__name__, 0)
+    for fn in TRAIN_WRAPPERS:
+        fn.bwd_launches += sign * counts.get(fn.__name__ + "_bwd", 0)
+
+
 def launch_counts(wrappers=WRAPPERS) -> dict:
     """``{name: forward launches}``, and ``{name + "_bwd": backward
     launches}`` for the training wrappers among ``wrappers``."""

@@ -121,9 +121,14 @@ def cached(owner: torch.Tensor, key, deps: Sequence[torch.Tensor],
     in-place update bumps a tensor's version.  What ``make()`` returns is
     an ordinary tensor even when the first call runs under
     ``torch.inference_mode()`` (an inference tensor has no version to
-    check); tensors made under that mode are not kept."""
+    check); tensors made under that mode are not kept.  Nothing is kept
+    while a CUDA graph captures: a replay updates the weights in place
+    without a new version, so the graph makes its copy each replay, and
+    whoever replays a graph drops the memos of the weights it updates
+    (:func:`forget_cached`)."""
     ts = (owner, *deps)
-    if any(t.is_inference() for t in ts):
+    if any(t.is_inference() for t in ts) or (
+            owner.is_cuda and torch.cuda.is_current_stream_capturing()):
         return make()
     state = tuple(t._version for t in ts) + tuple(t.data_ptr() for t in ts)
     memo = owner.__dict__.setdefault("_isg_memo", {})
@@ -135,6 +140,13 @@ def cached(owner: torch.Tensor, key, deps: Sequence[torch.Tensor],
         out = make()
     memo[key] = (tuple(deps), state, out)
     return out
+
+
+def forget_cached(tensors) -> None:
+    """Drop what :func:`cached` keeps on each of ``tensors`` (weights a
+    CUDA graph's replay updated in place)."""
+    for t in tensors:
+        t.__dict__.pop("_isg_memo", None)
 
 
 def _tma_weight(ks: Sequence[int], w: torch.Tensor) -> torch.Tensor:

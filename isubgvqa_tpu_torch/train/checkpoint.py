@@ -15,7 +15,8 @@ weights_only=True)`` opens it:
 * ``config`` (JSON) and ``state_dict``, the model's weights and
   BatchNorm buffers in f32: the two keys that
   :meth:`~isubgvqa_tpu_torch.serve.Predictor.from_checkpoint` reads;
-* ``optimizer`` (Adam's state), ``count`` and ``notfinite_count``;
+* ``optimizer`` (Adam's state), ``count`` and ``notfinite_count`` (ints;
+  the optimizer holds them as device tensors);
 * ``step`` (the train state's step), ``aimle_states`` (each masked
   layer's three 0-d tensors, or ``None``) and ``epoch``.
 
@@ -89,8 +90,8 @@ def state_payload(state: TrainState, epoch: int, cfg: Config) -> dict:
         "state_dict": {k: _full(v.detach(), dims.get(k)).float().cpu()
                        for k, v in state.model.state_dict().items()},
         "optimizer": adam,
-        "count": state.optimizer.count,
-        "notfinite_count": state.optimizer.notfinite_count,
+        "count": int(state.optimizer.count),
+        "notfinite_count": int(state.optimizer.notfinite_count),
         "step": state.step,
         "aimle_states": (None if state.aimle_states is None else {
             str(i): {f: getattr(st, f).detach().cpu() for f in AIMLE_FIELDS}
@@ -192,9 +193,8 @@ class CheckpointManager:
             adam["state"] = {i: {k: _cut(v, opt_dims[int(i)] if v.dim()
                                          else None) for k, v in st.items()}
                              for i, st in adam["state"].items()}
-            state.optimizer.adam.load_state_dict(adam)
-            state.optimizer.count = int(blob["count"])
-            state.optimizer.notfinite_count = int(blob["notfinite_count"])
+            state.optimizer.load(adam, blob["count"],
+                                 blob["notfinite_count"])
             state.step = int(blob["step"])
         epoch, cfg = -1, None
         meta_path = path + ".meta.json"

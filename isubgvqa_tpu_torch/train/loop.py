@@ -20,6 +20,12 @@ state's step (:func:`~.steps.step_generator`), a validation batch's noise
 from ``(cfg.seed, epoch + 1, global batch index)``, the data order from
 ``cfg.seed + epoch``.  So a run resumed from a checkpoint continues on
 the trajectory of one that was never stopped.
+
+With ``cfg.multistep = K > 1`` an epoch's batches go in groups of K of
+one shape (:func:`~..data.batching.group_multistep`) through
+:func:`~.steps.make_multistep_train_step`, one CUDA graph replay a group
+on the card, and a group's metrics cross to the host in one read; what
+is left of each shape at the end of the epoch takes the single step.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.batching import (group_multistep, iterate_batches,
@@ -44,9 +51,23 @@ from .checkpoint import CheckpointManager
 from .distributed_metrics import reduce_dict
 from .metrics import AverageMeter, ProgressMeter, StepTimer
 from .state import TrainState, create_train_state
-from .steps import make_eval_step, make_train_step
+from .steps import (METRIC_KEYS, make_eval_step, make_multistep_train_step,
+                    make_train_step)
 
 logger = logging.getLogger(__name__)
+
+
+def refuse_uncapturable(device: torch.device, multistep: int) -> None:
+    """Raise ``ValueError`` where ``multistep > 1`` cannot capture a
+    step: on CUDA under a Gloo group of more than one rank, whose
+    collectives run on the host, outside any CUDA graph."""
+    if (multistep > 1 and torch.device(device).type == "cuda"
+            and dist.is_initialized() and dist.get_world_size() > 1
+            and dist.get_backend() == "gloo"):
+        raise ValueError(
+            f"multistep {multistep} on CUDA captures {multistep} steps in "
+            f"one CUDA graph, and Gloo's collectives run on the host, "
+            f"where no graph can hold them: use NCCL or multistep 1")
 
 
 class Trainer:
@@ -79,6 +100,11 @@ class Trainer:
         self.train_step = make_train_step(state.model, state.optimizer, cfg)
         self.eval_step = make_eval_step(state.model, cfg)
         self.multistep = max(int(cfg.multistep or 1), 1)
+        self.multi_step = None
+        if self.multistep > 1:
+            refuse_uncapturable(self.device, self.multistep)
+            self.multi_step = make_multistep_train_step(
+                state.model, state.optimizer, cfg)
         self.ckpt = CheckpointManager(cfg.output_dir)
         self.val_totals: dict = {}
 
@@ -132,14 +158,14 @@ class Trainer:
         shown = -1                       # display on the first step
         for tag, batch, meta in batches:
             data_time.update(timer.lap())
-            group = batch if tag == "multi" else [batch]
-            per_step = []
-            for b in group:
-                self.state, m = self.train_step(self.state, b)
-                # the step's four metrics cross to the host in one read
-                per_step.append(torch.stack(
-                    [m["loss_sum"], m["correct"], m["count"],
-                     m["grad_norm"]]).float().tolist())
+            if tag == "multi":
+                self.state, m = self.multi_step(self.state, batch)
+            else:
+                self.state, m = self.train_step(self.state, batch)
+                m = {k: v[None] for k, v in m.items()}
+            # the steps' four metrics cross to the host in one read
+            per_step = torch.stack([m[k].float() for k in METRIC_KEYS],
+                                   1).tolist()
             t = timer.lap()
             for loss_sum, correct, count, norm in per_step:
                 count = max(count, 1.0)

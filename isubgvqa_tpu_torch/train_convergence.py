@@ -16,9 +16,10 @@ every sampler.
 
 It runs on the card unless ``--device cpu`` is given.  ``--config``
 (optional) is a JSON config whose fields the run's own settings
-override: narrow widths for a run on the CPU.  ``--multistep`` groups
-same-shape batches as the port's Trainer does; their steps run one
-after another, on the trajectory of ungrouped steps.  ``--resume``
+override: narrow widths for a run on the CPU.  ``--multistep K``
+(default 8) trains as the port's Trainer does: K same-shape batches a
+group, one CUDA graph replay a group on the card, on the trajectory of
+ungrouped steps.  ``--resume``
 continues each sampler from its rolling ``checkpoint``, when present:
 the record then covers only the continued epochs, and the best accuracy
 and lowest loss restart, as on the reference's resume
@@ -178,7 +179,7 @@ def run_sampler(sampler: str, args, device=None) -> dict:
     opt = trainer.state.optimizer
     for epoch in range(start_epoch, cfg.epochs):
         te0 = time.time()
-        steps, count = trainer.state.step, opt.count
+        steps, count = trainer.state.step, int(opt.count)
         train_loss = trainer.train_epoch(epoch)
         val_acc, val_loss = trainer.validate_epoch(epoch)
         lowest_loss, top_acc = trainer.ckpt.save_policy(
@@ -191,7 +192,7 @@ def run_sampler(sampler: str, args, device=None) -> dict:
                # steps whose gradients held a non-finite value: the
                # optimizer skips them and the loss meter leaves them out
                "skipped_steps": (trainer.state.step - steps)
-               - (opt.count - count)}
+               - (int(opt.count) - count)}
         epochs.append(rec)
         print(f"[{sampler}] {rec}", flush=True)
     stats = mask_statistics(trainer, data, cfg)

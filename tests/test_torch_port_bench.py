@@ -274,6 +274,30 @@ def test_bench_rows_of_the_other_samplers_on_cpu(cpu_setup, sampler):
         flops.train_step_flops(setup.cfg, 1, 32, 128, 12))
 
 
+def test_multistep_row_reports_ms_per_step_at_the_single_steps_flops():
+    """``bench_train_step(multistep=2)`` (the mirror of the JAX bench's
+    ``test_multistep_flops_accounting_is_dispatch_invariant``): three
+    groups of two distinct batches (one a warm-up), ms per step, and the
+    FLOPs a question of the K = 1 row on the same fixture."""
+    cfg = port_cfg(small_cfg(bucket_node_caps=(32,), encoder_layers=1,
+                             decoder_layers=1, text_emb_dim=64, num_heads=4,
+                             general_hidden_dim=32))
+    setup = bench.build_bench_setup(cfg, num_batches=6, min_timed=5,
+                                    device="cpu", train=True)
+    one = bench.bench_train_step(setup=setup)
+    two_setup = bench.for_sampler(setup, "gumbel", train=True)
+    two = bench.bench_train_step(setup=two_setup, multistep=2)
+    assert (one["multistep"], two["multistep"]) == (1, 2)
+    assert two_setup.state.step == 6                 # 3 groups of 2
+    _finite(two, ("train_qps_per_chip", "ms_per_step", "flops_per_question"))
+    (entry,) = two["per_bucket"].values()
+    assert two["ms_per_step"] == pytest.approx(entry["ms_per_step"])
+    assert two["flops_per_question"] == pytest.approx(
+        one["flops_per_question"], rel=1e-12)
+    with pytest.raises(ValueError, match="fewer than 3 groups"):
+        bench.bench_train_step(setup=two_setup, multistep=3)
+
+
 def test_bench_raises_without_cuda(monkeypatch):
     """No fallback: without CUDA and without ``--device cpu`` the bench
     raises before it builds anything."""

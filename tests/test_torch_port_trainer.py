@@ -343,8 +343,9 @@ def test_cli_evaluate_restores_the_model_only(trained):
 
 
 def test_cli_multistep_runs_every_batch(trained):
-    """``--multistep 2`` groups same-shape batches and runs their steps
-    one after another: the epoch trains on every batch once."""
+    """``--multistep 2`` groups same-shape batches, whose steps the
+    multistep step runs as a loop on the CPU: the epoch trains on every
+    batch once."""
     trainer, text = run_cli(tiny_argv(
         trained["cfg_path"], trained["root"] / "multi", "--epochs", "1",
         "--multistep", "2"))
